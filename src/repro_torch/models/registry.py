@@ -1,0 +1,24 @@
+"""arch config -> model constructor."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def build_model(cfg: ModelConfig, *, device="cuda",
+                generator: Optional[torch.Generator] = None):
+    """A ``DecoderLM`` for ``cfg`` on ``device``.  With ``generator`` the
+    weights are drawn at random (``DecoderLM.init``); without, they are
+    left for ``models/convert.py::params_from_jax`` to fill."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("encoder-decoder models are not ported "
+                                  "yet (ROADMAP.md Queue 1 item 13)")
+    from repro_torch.models.transformer import DecoderLM
+
+    model = DecoderLM(cfg, device=device)
+    if generator is not None:
+        model.init(generator)
+    return model

@@ -1,0 +1,365 @@
+"""Decoder-only LM, dense family — the port of ``repro/models/transformer.py``.
+
+``DecoderLM`` is an ``nn.Module`` holding one ``DecoderBlock`` per layer,
+with every weight in the reference's layout (``wq`` (D, H, Dh), ``wo``
+(H, Dh, D), ...), so ``models/convert.py`` moves weights across by name.
+This slice runs the dense attention + gated-SiLU path only; MoE, MLA, SSM,
+sliding-window, GELU-MLP and image/audio front ends raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 13).
+
+The KV cache is a flat dict of stacked leaves keyed like the reference
+(``blocks/0/k``: (layers, B, S, K, Dh) slotted, or (layers, P, page, K,
+Dh) as a paged pool).  Where JAX returned a new cache, ``prefill_chunk``
+and ``decode_step`` write the caller's leaves IN PLACE and hand the same
+dict back.  JAX drops out-of-bounds scatters (the INVALID page sink, pad
+tokens); PyTorch raises, so each dispatch computes its kept write targets
+once (one host sync) and writes only those.  JAX clamps out-of-bounds
+gathers; the gathered view (``paged_gather_view``) clamps INVALID entries
+to page P - 1 explicitly.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_gather_view)
+from repro_torch.models import layers as L
+
+INVALID_PAGE = 2 ** 30
+
+# reference param name suffix (under "blocks/0/") -> (DecoderBlock attr, init)
+BLOCK_LEAVES = {
+    "attn_norm": ("attn_norm", "ones"),
+    "attn/wq": ("wq", "normal"),
+    "attn/wk": ("wk", "normal"),
+    "attn/wv": ("wv", "normal"),
+    "attn/wo": ("wo", "normal"),
+    "attn/bq": ("bq", "zeros"),
+    "attn/bk": ("bk", "zeros"),
+    "attn/bv": ("bv", "zeros"),
+    "mlp_norm": ("mlp_norm", "ones"),
+    "mlp/w_gate": ("w_gate", "normal"),
+    "mlp/w_up": ("w_up", "normal"),
+    "mlp/w_down": ("w_down", "normal"),
+}
+# top-level reference param name -> (DecoderLM attr, init)
+TOP_LEAVES = {
+    "embed/tokens": ("embed_tokens", "normal"),
+    "final_norm/w": ("final_norm", "ones"),
+    "head/w": ("head", "normal"),
+}
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    unported = {"moe": cfg.moe is not None, "mla": cfg.mla is not None,
+                "ssm": cfg.ssm is not None or cfg.family in ("ssm", "hybrid"),
+                "encdec": cfg.encdec is not None or cfg.family == "encdec",
+                "sliding_window": cfg.sliding_window > 0,
+                "mlp_kind": cfg.mlp_kind != "gated_silu",
+                "image/audio front end": bool(cfg.num_image_patches
+                                              or cfg.audio_frontend)}
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP.md Queue "
+            "1 item 12, other model families); this slice runs the dense "
+            "attention + gated-SiLU path")
+
+
+class DecoderBlock(nn.Module):
+    """One dense layer's weights (attention + gated-SiLU MLP)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        D, H, K, Dh, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim, cfg.d_ff)
+        shapes = {"attn_norm": (D,), "wq": (D, H, Dh), "wk": (D, K, Dh),
+                  "wv": (D, K, Dh), "wo": (H, Dh, D), "mlp_norm": (D,),
+                  "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
+        if cfg.qkv_bias:
+            shapes.update(bq=(H, Dh), bk=(K, Dh), bv=(K, Dh))
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device),
+                requires_grad=False))
+
+
+class DecoderLM(nn.Module):
+    """Dense decoder-only LM with the reference's forward / prefill /
+    chunked-prefill / decode entry points."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        _check_dense(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        dev, dt = self.device, self.dtype
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev),
+                                requires_grad=False)
+
+        self.embed_tokens = param(cfg.vocab_size, cfg.d_model)
+        self.final_norm = param(cfg.d_model)
+        self.head = (None if cfg.tie_embeddings
+                     else param(cfg.d_model, cfg.vocab_size))
+        self.layers = nn.ModuleList(DecoderBlock(cfg, dt, dev)
+                                    for _ in range(cfg.num_layers))
+
+    # ------------------------------------------------------------------
+    def leaves(self):
+        """(reference name, layer or None, attr owner, attr, init) for every
+        weight — the one table ``init`` and ``models/convert.py`` walk."""
+        for name, (attr, init) in TOP_LEAVES.items():
+            if getattr(self, attr) is not None:
+                yield name, None, self, attr, init
+        for suffix, (attr, init) in BLOCK_LEAVES.items():
+            for layer, blk in enumerate(self.layers):
+                if hasattr(blk, attr):
+                    yield f"blocks/0/{suffix}", layer, blk, attr, init
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "DecoderLM":
+        """Random weights at the reference initializer's distribution, drawn
+        from ``generator`` (on this model's device).  The reference folds a
+        per-process-salted ``hash(name)`` into each key, so its weights
+        cannot be re-derived here: parity runs convert them instead."""
+        for _, _, owner, attr, init in self.leaves():
+            p = getattr(owner, attr)
+            p.copy_(L.init_leaf(tuple(p.shape), init, p.dtype, generator,
+                                p.device))
+        return self
+
+    # ------------------------------------------------------------------
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens[tokens.long()]
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", x, self.embed_tokens)
+        return x @ self.head
+
+    def _mlp(self, blk, x):
+        h = L.rms_norm(x, blk.mlp_norm, self.cfg.norm_eps)
+        return x + L.mlp_apply(blk, h)
+
+    def _layer_fwd(self, blk, x, positions):
+        cfg = self.cfg
+        h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+        q, k, v = L.attention_qkv(cfg, blk, h, positions)
+        attn = L.gqa_attention(q, k, v, L.attention_mask(positions,
+                                                         positions))
+        x = x + L.attention_out(blk, attn)
+        return self._mlp(blk, x), (k, v)
+
+    def _positions(self, B: int, S: int) -> torch.Tensor:
+        return torch.arange(S, device=self.device)[None, :].expand(B, S)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V)."""
+        x = self.embed(tokens)
+        positions = self._positions(*tokens.shape)
+        for blk in self.layers:
+            x, _ = self._layer_fwd(blk, x, positions)
+        return self.unembed(x)
+
+    @torch.no_grad()
+    def forward_hidden(self, tokens: torch.Tensor, *,
+                       num_layers: int) -> torch.Tensor:
+        """Embedding + the first ``num_layers`` layers: hidden (B, S, D) —
+        the CoIC descriptor-prefix path."""
+        x = self.embed(tokens)
+        positions = self._positions(*tokens.shape)
+        for blk in self.layers[:num_layers]:
+            x, _ = self._layer_fwd(blk, x, positions)
+        return x
+
+    # ------------------------------------------------------------------
+    # caches
+    # ------------------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int
+                    ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """(shape, dtype) of the slotted decode cache leaves."""
+        cfg = self.cfg
+        shp = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+               cfg.head_dim)
+        return {"blocks/0/k": (shp, self.dtype),
+                "blocks/0/v": (shp, self.dtype)}
+
+    def paged_cache_specs(self, num_pages: int, page_size: int
+                          ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """(shape, dtype) of the paged pool leaves ``(layers, num_pages,
+        page_size, K, Dh)``; page ``num_pages`` is the out-of-bounds
+        sink."""
+        cfg = self.cfg
+        shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+               cfg.head_dim)
+        return {"blocks/0/k": (shp, self.dtype),
+                "blocks/0/v": (shp, self.dtype)}
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        return {k: torch.zeros(s, dtype=d, device=self.device)
+                for k, (s, d) in self.cache_specs(batch, max_len).items()}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, max_len: Optional[int] = None,
+                lengths: Optional[torch.Tensor] = None):
+        """Run the full prompt and build a slotted cache of ``max_len``
+        positions.  Returns (last-position logits (B, V), cache, lengths);
+        with ``lengths`` (a right-padded batch) logits come from each row's
+        true last token."""
+        B, S = tokens.shape
+        max_len = max_len or S
+        cache = self.init_cache(B, max_len)
+        x = self.embed(tokens)
+        positions = self._positions(B, S)
+        for i, blk in enumerate(self.layers):
+            x, (k, v) = self._layer_fwd(blk, x, positions)
+            cache["blocks/0/k"][i, :, :S] = k
+            cache["blocks/0/v"][i, :, :S] = v
+        rows = torch.arange(B, device=self.device)
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32,
+                                 device=self.device)
+            logits = self.unembed(x[:, -1:])[:, 0]
+        else:
+            lengths = lengths.to(torch.int32)
+            last = (lengths.long() - 1).clamp(min=0)
+            logits = self.unembed(x[rows, last][:, None])[:, 0]
+        return logits, cache, lengths
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _page_targets(block_table: torch.Tensor, positions: torch.Tensor,
+                      valid: Optional[torch.Tensor], page: int):
+        """Physical (page, offset) scatter targets for token ``positions``
+        (B, C) through ``block_table`` (B, n_pages).  Invalid positions are
+        redirected to page ``INVALID_PAGE`` (out of bounds: dropped)."""
+        n_pages = block_table.shape[1]
+        lp = (positions // page).clamp(0, n_pages - 1)
+        pp = torch.gather(block_table.long(), 1, lp.long())
+        oob = positions // page >= n_pages
+        if valid is not None:
+            oob = oob | ~valid
+        pp = torch.where(oob, INVALID_PAGE, pp)
+        return pp, positions % page
+
+    def _write_targets(self, cache, positions, valid, block_table):
+        """The kept (token row, leaf index...) write targets of one
+        dispatch, shared by every layer: JAX's ``mode="drop"`` scatter,
+        with the dropped targets left out.  One host sync (``nonzero``)."""
+        B, C = positions.shape
+        leaf = cache["blocks/0/k"]
+        if block_table is not None:
+            P, page = leaf.shape[1], leaf.shape[2]
+            pp, off = self._page_targets(block_table, positions.long(),
+                                         valid, page)
+            keep = (pp < P).reshape(-1)
+            a, b = pp.reshape(-1), off.reshape(-1)
+        else:
+            S = leaf.shape[2]
+            pos = positions.long()
+            keep = pos < S
+            if valid is not None:
+                keep = keep & valid
+            keep = keep.reshape(-1)
+            a = torch.arange(B, device=pos.device).repeat_interleave(C)
+            b = pos.reshape(-1)
+        sel = keep.nonzero().squeeze(1)
+        return sel, a[sel], b[sel]
+
+    def _attend(self, q, ck, cv, positions, lengths, block_table, attn_impl):
+        """Attention of chunk queries ``q`` (B, C, H, Dh) at ``positions``
+        over one layer's (already written) cache leaves."""
+        if block_table is not None and attn_impl != "gather":
+            return paged_attention(q, ck, cv, block_table, lengths,
+                                   impl=attn_impl)
+        if block_table is not None:            # INVALID clamps to page P-1
+            ck = paged_gather_view(ck, block_table)
+            cv = paged_gather_view(cv, block_table)
+        Sk = ck.shape[1]
+        kpos = torch.arange(Sk, device=q.device)[None, :].expand(
+            q.shape[0], Sk)
+        return L.gqa_attention(q, ck, cv, L.attention_mask(positions, kpos))
+
+    def _cached_layers(self, x, positions, lengths, cache, valid,
+                       block_table, attn_impl):
+        """Every layer of a prefill chunk / decode step: project, write the
+        new k/v into the cache in place, attend over the cache."""
+        cfg = self.cfg
+        B, C, _ = x.shape
+        sel, ia, ib = self._write_targets(cache, positions, valid,
+                                          block_table)
+        kc, vc = cache["blocks/0/k"], cache["blocks/0/v"]
+        for i, blk in enumerate(self.layers):
+            h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+            q, k, v = L.attention_qkv(cfg, blk, h, positions)
+            flat = (B * C, cfg.num_kv_heads, cfg.head_dim)
+            kc[i][ia, ib] = k.reshape(flat)[sel]      # in place
+            vc[i][ia, ib] = v.reshape(flat)[sel]
+            attn = self._attend(q, kc[i], vc[i], positions, lengths,
+                                block_table, attn_impl)
+            x = x + L.attention_out(blk, attn)
+            x = self._mlp(blk, x)
+        return x
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, cache: dict,
+                      lengths: torch.Tensor,
+                      widths: Optional[torch.Tensor] = None, *,
+                      block_table: Optional[torch.Tensor] = None,
+                      attn_impl: str = "gather"):
+        """Run one chunk of prompt tokens against an existing cache.
+
+        tokens: (B, C); lengths: (B,) cache fill per row (the chunk occupies
+        positions lengths..lengths+C-1).  ``widths`` (B,) marks the VALID
+        leading tokens of a width-padded chunk: pad tokens never write the
+        cache and logits come from each row's true last token.
+        ``block_table`` (B, n_pages) switches ``cache`` to the paged pool
+        layout; ``attn_impl`` is ``"gather"`` (dense view of the pool) or a
+        ``kernels/paged_attention`` impl (``auto`` | ``cuda`` | ``ref``)
+        reading pages in place.  Returns (last logits (B, V), cache — the
+        same dict, written in place —, new lengths)."""
+        B, C = tokens.shape
+        dev = self.device
+        lengths = lengths.to(dev)
+        x = self.embed(tokens.to(dev))
+        positions = lengths.long()[:, None] + torch.arange(C, device=dev)
+        valid = (None if widths is None else
+                 torch.arange(C, device=dev)[None, :]
+                 < widths.to(dev)[:, None])
+        x = self._cached_layers(x, positions, lengths, cache, valid,
+                                block_table, attn_impl)
+        if widths is None:
+            logits = self.unembed(x[:, -1:])[:, 0]
+            return logits, cache, lengths + C
+        widths = widths.to(dev)
+        last = (widths.long() - 1).clamp(min=0)
+        x_last = x[torch.arange(B, device=dev), last][:, None]
+        return self.unembed(x_last)[:, 0], cache, lengths + widths
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    block_table: Optional[torch.Tensor] = None,
+                    attn_impl: str = "gather"):
+        """One decode step.  tokens: (B,); lengths: (B,) cache fill per row
+        (the position of the incoming token).  Returns (logits (B, V),
+        cache — written in place —, lengths + 1).  With a block table,
+        INVALID rows (idle / mid-prefill) drop their write."""
+        dev = self.device
+        lengths = lengths.to(dev)
+        x = self.embed(tokens.to(dev))[:, None, :]
+        positions = lengths.long()[:, None]
+        x = self._cached_layers(x, positions, lengths, cache, None,
+                                block_table, attn_impl)
+        return self.unembed(x)[:, 0], cache, lengths + 1

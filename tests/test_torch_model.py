@@ -1,0 +1,157 @@
+"""PyTorch port of the dense decoder vs the JAX ``DecoderLM`` (CPU, fp32).
+
+Both packages run the same weights (the converter moves them across) on
+the same seeded tokens: ``coic-paper`` (MHA, untied) and the reduced
+``llama3.2-1b`` (GQA, tied embeddings).  Logits and cache state within
+``atol=1e-4, rtol=1e-4``; greedy tokens exact.  Configs compare field for
+field with the reference's.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro_torch.configs import get_config as torch_get_config
+from repro_torch.configs import reduced_config as torch_reduced
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_jax, params_to_numpy
+from torch_twins import twin
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+MODELS = [("coic-paper", False), ("llama3.2-1b", True)]
+INVALID = 2 ** 30
+
+
+def _fields(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize("name", ["coic-paper", "llama3.2-1b"])
+def test_configs_equal_reference(name):
+    from repro.configs import reduced_config
+    assert _fields(torch_get_config(name)) == _fields(get_config(name))
+    assert (_fields(torch_reduced(torch_get_config(name)))
+            == _fields(reduced_config(get_config(name))))
+
+
+def test_unported_config_and_missing_gpu_raise():
+    with pytest.raises(NotImplementedError):
+        torch_get_config("mamba2-2.7b")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            build_model(torch_get_config("coic-paper"))
+
+
+@pytest.mark.parametrize("name,reduced", MODELS)
+def test_converter_round_trips(name, reduced):
+    _, _, jparams, tmodel = twin(name, reduced)
+    flat = {k: np.asarray(v) for k, v in jparams.items()}
+    back = params_to_numpy(tmodel)
+    assert set(back) == set(flat)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k])
+    # and the other way: port weights -> reference layout -> a fresh port
+    fresh = build_model(tmodel.cfg, device="cpu")
+    params_from_jax(back, fresh)
+    for (n, l, o, a, _), (_, _, o2, a2, _) in zip(tmodel.leaves(),
+                                                  fresh.leaves()):
+        assert torch.equal(getattr(o, a), getattr(o2, a2)), (n, l)
+
+
+@pytest.mark.parametrize("name,reduced", MODELS)
+def test_forward_and_hidden_match(name, reduced):
+    cfg, jm, jp, tm = twin(name, reduced)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 13)).astype(np.int32)
+    jfwd = jax.jit(jm.forward)
+    jhid = jax.jit(jm.forward_hidden, static_argnames=("num_layers",))
+    np.testing.assert_allclose(tm.forward(torch.from_numpy(toks)).numpy(),
+                               np.asarray(jfwd(jp, jnp.asarray(toks))), **TOL)
+    np.testing.assert_allclose(
+        tm.forward_hidden(torch.from_numpy(toks), num_layers=1).numpy(),
+        np.asarray(jhid(jp, jnp.asarray(toks), num_layers=1)), **TOL)
+
+
+def _close_cache(tc, jc):
+    assert set(tc) == set(jc)
+    for k in jc:
+        np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]), **TOL)
+
+
+@pytest.mark.parametrize("attn_impl", ["gather", "ref"])
+@pytest.mark.parametrize("name,reduced", MODELS)
+def test_paged_chunk_and_decode_match(name, reduced, attn_impl):
+    """A width-padded paged chunk (one row mid-table, one pad row), then two
+    greedy decode steps, through both attention reads."""
+    cfg, jm, jp, tm = twin(name, reduced)
+    rng = np.random.default_rng(1)
+    P, page = 10, 4
+    bt = np.array([[0, 1, 2, 3], [4, 5, 6, INVALID], [INVALID] * 4],
+                  np.int32)
+    lens = np.array([0, 4, 0], np.int32)
+    widths = np.array([7, 5, 0], np.int32)
+    chunk = rng.integers(0, cfg.vocab_size, size=(3, 8)).astype(np.int32)
+    jpool = {k: jnp.zeros(v.shape, v.dtype)
+             for k, v in jm.paged_cache_specs(P, page).items()}
+    tpool = {k: torch.zeros(s, dtype=d)
+             for k, (s, d) in tm.paged_cache_specs(P, page).items()}
+    J = lambda a: jnp.asarray(a)                     # noqa: E731
+    T = lambda a: torch.from_numpy(np.array(a))      # noqa: E731
+    jchunk = jax.jit(jm.prefill_chunk, static_argnames=("attn_impl",))
+    jdecode = jax.jit(jm.decode_step, static_argnames=("attn_impl",))
+    jl, jpool, jn = jchunk(jp, J(chunk), jpool, J(lens), J(widths),
+                           block_table=J(bt), attn_impl=attn_impl)
+    tl, tpool, tn = tm.prefill_chunk(T(chunk), tpool, T(lens), T(widths),
+                                     block_table=T(bt), attn_impl=attn_impl)
+    np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2], **TOL)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    _close_cache(tpool, jpool)
+    dbt = bt.copy()
+    dbt[2] = INVALID                                 # idle row
+    tok = np.asarray(jnp.argmax(jl, -1), np.int32)
+    for _ in range(2):
+        np.testing.assert_array_equal(tl.argmax(-1)[:2].numpy(), tok[:2])
+        jl, jpool, jn = jdecode(jp, jpool, J(tok), jn, block_table=J(dbt),
+                                attn_impl=attn_impl)
+        tl, tpool, tn = tm.decode_step(tpool, T(tok), tn, block_table=T(dbt),
+                                       attn_impl=attn_impl)
+        np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2], **TOL)
+        _close_cache(tpool, jpool)
+        tok = np.asarray(jnp.argmax(jl, -1), np.int32)
+
+
+@pytest.mark.parametrize("name,reduced", MODELS)
+def test_dense_prefill_and_decode_match(name, reduced):
+    """The slotted-cache prefill + decode that ``generation_cloud_fn``
+    runs: logits, cache and greedy tokens."""
+    cfg, jm, jp, tm = twin(name, reduced)
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    jdecode = jax.jit(jm.decode_step)
+    jl, jc, jn = jax.jit(jm.prefill, static_argnames=("max_len",))(
+        jp, jnp.asarray(toks), max_len=12)
+    tl, tc, tn = tm.prefill(torch.from_numpy(toks), max_len=12)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _close_cache(tc, jc)
+    for _ in range(3):
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        np.testing.assert_array_equal(tl.argmax(-1).numpy(), tok)
+        jl, jc, jn = jdecode(jp, jc, jnp.asarray(tok), jn)
+        tl, tc, tn = tm.decode_step(tc, torch.from_numpy(tok), tn)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _close_cache(tc, jc)
+
+
+def test_random_init_distribution():
+    """``init(generator)`` follows the reference initializer: ones for
+    norms, normal * min(0.02, 1/sqrt(fan_in)) for matrices."""
+    cfg = torch_reduced(torch_get_config("llama3.2-1b"))
+    m = build_model(dataclasses.replace(cfg, dtype="float32"), device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    assert torch.equal(m.final_norm, torch.ones_like(m.final_norm))
+    std = float(m.layers[0].w_gate.std())
+    assert abs(std - min(0.02, cfg.d_model ** -0.5)) < 0.002
