@@ -15,11 +15,25 @@ Phases, one line each; any failure raises and exits non-zero:
                from a seed, bf16) behind the CoIC edge cache in
                ``ServingEngine`` (paged KV, paged attention), two waves of
                requests, then the edge cache's own lookup API (fused and
-               unfused).  The kernels' launch counters are zeroed just
-               before and read just after: every kernel must have run;
-  4. e2e     — coic-paper in fp32 (TF32 off) through the kernel path
-               (attn_impl="paged") and the plain path ("gather"): decoded
-               tokens and sources must be identical.
+               unfused);
+  4. fed     — the federated path at full width: the same model behind a
+               2-cluster x 2-node federation with an IVF-PQ digest board
+               and a membership plane; three waves (misses; peer and
+               remote hits; a cluster killed and its requests rerouted),
+               once at the default ANN floor (hits read, not gated),
+               then gated; every K6 launch of the gated run is held
+               against the plain version on the same tensors; then a
+               profiled fourth wave after a revive;
+  5. k4      — the membership-aware pooled lookup (surviving_topk_lookup)
+               over the federation's surviving shards, kernel vs plain;
+  6. e2e     — coic-paper in fp32 (TF32 off) through the kernel path and
+               the plain path: attn_impl "paged" vs "gather" on one
+               cluster, then lookup_impl "auto" vs "ref" on the federated
+               waves.  Decoded tokens, sources (and tier counts) must be
+               identical.
+
+Each path's kernel launch counters are zeroed just before it is driven
+and read just after: every kernel of the path must have run.
 
 Then it prints the card (nvidia-smi name, power limit) before the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -71,15 +85,43 @@ def main() -> None:
     print(f"card: {card}", flush=True)
 
     kernels = phase_kernels(torch)
-    launches, serve = phase_serve(torch)
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model: built {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches, serve = phase_serve(torch, model)
+    fed_launches, fed_eng, fed_prompts, k6_path = phase_federated(torch,
+                                                                  model)
+    k4_launches = phase_surviving(torch, model, fed_eng, fed_prompts)
+    del fed_eng, model
+    torch.cuda.empty_cache()
+    # each kernel's launches on the path that runs it: the single-cluster
+    # serve path (K1-K3, K5), the federated path (K6), the surviving-shard
+    # lookup (K4)
+    paths = {"similarity_topk": (k4_launches, None),
+             "ivf_pq_probe": (fed_launches, FED_REQUESTS)}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        counts, n_req = paths.get(k["name"], (launches, serve["completed"]))
+        k["launches"] = counts[k["name"]]
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main "
+            raise AssertionError(f"{k['name']} never launched on its path")
+        if n_req:
+            k["launches_per_request"] = k["launches"] / n_req
+        if k["name"] == "ivf_pq_probe":
+            k["on_path"] = k6_path
+    for name in ("similarity_topk_batched", "paged_attention",
+                 "ivf_pq_probe"):
+        if fed_launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the federated "
                                  "path")
     phase_e2e(torch)
-    for k in kernels:
-        k["launches_per_request"] = k["launches"] / serve["completed"]
+    phase_federated_e2e(torch)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -251,11 +293,15 @@ def phase_kernels(torch):
             "shape": "N=1 Q=16 C=512 D=2048 k=1 fp32"})
 
     kernels.append(check_paged(torch, g, timer, paged_attention))
+    kernels.append(check_topk(torch, g, timer))
+    kernels.append(check_ivf_pq(torch, g, timer))
     for k in kernels:
+        lib = ("none" if k["library_ms"] is None
+               else f"{k['library_ms']:.4f}")
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
-              f"{k['library_ms']:.4f}, bound {k['bound_ms']:.5f} by "
-              f"{k['bound_by']})", flush=True)
+              f"{lib}, bound {k['bound_ms']:.5f} by {k['bound_by']})",
+              flush=True)
     return kernels
 
 
@@ -358,6 +404,181 @@ def check_paged(torch, g, timer, paged_attention):
             "prefill": prefill}
 
 
+def check_topk(torch, g, timer):
+    """K4, the single-matrix top-k, at the pooled-shard shape of the
+    membership lookup: C = 4 shards x 512, D = 2048; indices exact, scores
+    within 1e-5."""
+    from repro_torch.kernels.similarity import similarity_topk
+
+    C, D = 2048, 2048
+    err = 0.0
+    for case in ("random", "duplicate", "all_invalid"):
+        for Q in (1, 16):
+            q, keys, valid = sim_inputs(torch, g, 1, Q, C, D, case)
+            for k in (1, 4):
+                ci, cs = similarity_topk(q[0], keys[0], valid[0], k)
+                ri, rs = similarity_topk(q[0], keys[0], valid[0], k,
+                                         impl="ref")
+                torch.cuda.synchronize()
+                assert torch.equal(ci, ri), ("similarity_topk idx", case, Q,
+                                             k)
+                e = float((cs - rs).abs().max())
+                assert e <= 1e-5, ("similarity_topk score", case, Q, k, e)
+                err = max(err, e)
+    Q = 16
+    q, keys, valid = sim_inputs(torch, g, 1, Q, C, D, "random")
+    q, keys, valid = q[0], keys[0], valid[0]
+    kt = keys.t().contiguous()
+    b_ms, b_by = bound(Q * D * 4 + C * D * 4 + C + Q * 8, 2.0 * Q * C * D,
+                       "float32")
+    return {"name": "similarity_topk", "route": "cuda",
+            "source": "src/repro_torch/csrc/similarity.cu",
+            "replaces": "src/repro/kernels/similarity/kernel.py:139",
+            "launches": 0, "max_abs_err": err,
+            "ms": timer(lambda: similarity_topk(q, keys, valid, 1)),
+            "plain_ms": timer(lambda: similarity_topk(q, keys, valid, 1,
+                                                      impl="ref")),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(lambda: torch.topk(q @ kt, 1)),
+            "shape": "Q=16 C=2048 (4x512) D=2048 k=1 fp32"}
+
+
+def ivf_inputs(torch, g, Q, L, cap, S, D, n_probe, dev="cuda"):
+    """A random IVF-PQ index, made directly (no k-means): unit queries and
+    centroids, a random codebook and uint8 codes, ~10% dead slots, owners
+    uniform over 4 clusters, every max(7, L // 10)-th list invalid, slots 0
+    and 1 of every list with equal codes, homes in 4 blocks of queries.
+    Query 0 is made candidate-free (its probed lists' slots all owned by
+    its home).  The last query is planted on a twin pair: it equals the
+    centroid of list 1, whose slots 0 and 1 hold the codes that maximise
+    each subspace's term, so no other slot scores as high and the two tie
+    exactly; the lower flat index must come first.  Returns the kernel's
+    arguments and the pair's (row, flat index)."""
+    from repro_torch.kernels.ivf_pq import ivf_pq_probe
+
+    assert Q >= 2 and L >= 2 and cap >= 2, (Q, L, cap)
+    q = _unit(torch.randn(Q, D, generator=g, device=dev))
+    cent = _unit(torch.randn(L, D, generator=g, device=dev))
+    cent_valid = torch.ones(L, dtype=torch.bool, device=dev)
+    cent_valid[::max(7, L // 10)] = False
+    codes = torch.randint(0, 256, (L, cap, S), generator=g, device=dev,
+                          dtype=torch.uint8)
+    codes[:, 1] = codes[:, 0]
+    slot_valid = torch.rand(L, cap, generator=g, device=dev) < 0.9
+    owner = torch.randint(0, 4, (L, cap), generator=g, device=dev,
+                          dtype=torch.int32)
+    cb = 0.02 * torch.randn(S, 256, D // S, generator=g, device=dev)
+    home = (torch.arange(Q, device=dev) * 4 // Q).to(torch.int32)
+    args = [q, home, cent, cent_valid, codes, slot_valid, owner, cb]
+    _, _, sel = ivf_pq_probe(*args, k=1, n_probe=n_probe, impl="ref")
+    owner[sel[0].long()] = home[0]
+    # the twin pair (owned by query 0's home, so query 0 stays
+    # candidate-free; homes differ between the first and the last query)
+    row, j = Q - 1, 1
+    q[row] = cent[j]
+    lut = torch.einsum("sd,scd->sc", q[row].reshape(S, D // S), cb)
+    codes[j, 0] = codes[j, 1] = lut.argmax(dim=1).to(torch.uint8)
+    slot_valid[j, :2] = True
+    owner[j, :2] = home[0]
+    return args, (row, j * cap)
+
+
+def _near_tie(torch, scores, tol=1e-5):
+    """Rows whose sorted real scores (masked ones, -1e30, are left out)
+    have two neighbours closer than ``tol`` but not equal: the order of an
+    exact tie (lower index first) is checked, not excused."""
+    gaps = scores[:, :-1] - scores[:, 1:]
+    return ((gaps > 0) & (gaps < tol) & (scores[:, 1:] > -1e29)).any(dim=1)
+
+
+def ivf_pq_agree(torch, args, k, n_probe, out):
+    """The kernel's (idx, score, sel) against the plain version on the same
+    arguments: scores within 1e-4; sel and idx equal on every row whose
+    plain order is not decided by a near tie (coarse scores at the n_probe
+    boundary, or fine scores at the k boundary, 0 < gap < 1e-5).  Returns
+    (max score error, rows excused)."""
+    from repro_torch.kernels.ivf_pq import ivf_pq_probe
+
+    L, cap = args[4].shape[:2]
+    ri, rs, rsel = ivf_pq_probe(*args, k=min(k + 1, L * cap),
+                                n_probe=n_probe, impl="ref")
+    ci, cs, csel = out
+    e = float((cs - rs[:, :k]).abs().max()) if cs.numel() else 0.0
+    assert e <= 1e-4, ("ivf_pq_probe score", k, e)
+    q, _, cent, cent_valid = args[:4]
+    coarse = torch.where(cent_valid.bool()[None], q.float() @ cent.float().T,
+                         -1e30)
+    top = torch.sort(coarse, dim=1, descending=True).values[:, :n_probe + 1]
+    tie = _near_tie(torch, top) | _near_tie(torch, rs)
+    bad = (csel != rsel).any(dim=1) | (ci != ri[:, :k]).any(dim=1)
+    assert not bool((bad & ~tie).any()), ("ivf_pq_probe idx/sel",
+                                          torch.nonzero(bad & ~tie))
+    return e, int((bad & tie).sum())
+
+
+def ivf_pq_check(torch, args, twin, k, n_probe, out):
+    """``ivf_pq_agree`` on inputs from ``ivf_inputs``, plus the kernel's
+    conventions: the candidate-free query 0 gets indices 0..k-1 at -1e30,
+    and the planted twin pair comes lower index first."""
+    e, excused = ivf_pq_agree(torch, args, k, n_probe, out)
+    idx, score, _ = out
+    assert idx[0].tolist() == list(range(k)), "candidate-free row"
+    assert bool((score[0] == -1e30).all()), "candidate-free row"
+    row, flat = twin
+    pair = [flat, flat + 1][:k]
+    assert idx[row, :len(pair)].tolist() == pair, ("twin pair", idx[row])
+    if k > 1:
+        assert float(score[row, 0]) == float(score[row, 1]), "twin scores"
+    return e, excused
+
+
+def ivf_pq_bound(torch, args, sel):
+    """(bound_ms, bound_by, probed lists) of one K6 call: each input read
+    once in the port's storage types (codes u8, slot validity 1 byte,
+    owner int32, over the lists some query probes, ``sel``), the outputs
+    written once; the coarse scores, the lookup table and the S table
+    reads per probed slot."""
+    Q, D = args[0].shape
+    L, cap, S = args[4].shape
+    n_probe = sel.shape[1]
+    n_lists = int(torch.unique(sel).numel())
+    nbytes = (Q * D * 4 + Q * 4 + L * D * 4 + L + S * 256 * (D // S) * 4
+              + n_lists * cap * (S + 1 + 4) + Q * 8 + Q * n_probe * 4)
+    flops = 2.0 * Q * L * D + 2.0 * Q * 256 * D + Q * n_probe * cap * S
+    return (*bound(nbytes, flops, "float32"), n_lists)
+
+
+def check_ivf_pq(torch, g, timer):
+    """K6 at the region-board scale: Q = 4 home clusters x 64, D = 2048,
+    L = 1024 lists x cap 984 (~1M slots), S = 8, n_probe = 16."""
+    from repro_torch.kernels.ivf_pq import ivf_pq_probe
+
+    Q, L, cap, S, D, n_probe = 256, 1024, 984, 8, 2048, 16
+    args, twin = ivf_inputs(torch, g, Q, L, cap, S, D, n_probe)
+    err, excused = 0.0, 0
+    for k in (1, 4):
+        out = ivf_pq_probe(*args, k=k, n_probe=n_probe)
+        torch.cuda.synchronize()
+        e, x = ivf_pq_check(torch, args, twin, k, n_probe, out)
+        err, excused = max(err, e), excused + x
+    print(f"kernel ivf_pq_probe: {excused} rows excused by near ties "
+          "(0 < gap < 1e-5); the candidate-free row and the exact twin tie "
+          "checked", flush=True)
+    _, _, sel = ivf_pq_probe(*args, k=1, n_probe=n_probe, impl="ref")
+    b_ms, b_by, n_lists = ivf_pq_bound(torch, args, sel)
+    return {"name": "ivf_pq_probe", "route": "cuda",
+            "source": "src/repro_torch/csrc/ivf_pq.cu",
+            "replaces": "src/repro/kernels/ivf_pq/kernel.py:113",
+            "launches": 0, "max_abs_err": err,
+            "ms": timer(lambda: ivf_pq_probe(*args, k=1, n_probe=n_probe)),
+            "plain_ms": timer(lambda: ivf_pq_probe(*args, k=1,
+                                                   n_probe=n_probe,
+                                                   impl="ref")),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "rows_excused": excused, "probed_lists": n_lists,
+            "shape": "Q=256 L=1024 cap=984 S=8 D=2048 n_probe=16 k=1"}
+
+
 # ---------------------------------------------------------------------------
 # 3. the main path at full width
 # ---------------------------------------------------------------------------
@@ -371,24 +592,15 @@ def stream(rng, vocab, heads, n, lo=96, hi=320):
             for i, L in enumerate(rng.integers(lo, hi + 1, size=n))]
 
 
-def phase_serve(torch):
+def phase_serve(torch, model):
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.core.coic import CoICConfig
     from repro_torch.core.descriptor import PrefixDescriptor
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingConfig, ServingEngine
 
-    cfg = get_config("llama3.2-1b")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    print(f"serve: built {cfg.name} ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    cfg = model.cfg
     scfg = ServingConfig(max_batch=8, max_len=512, max_new_tokens=16,
                          kv_page=16, prefill_chunk=128, attn_impl="paged",
                          coic=CoICConfig(capacity=512, threshold=0.98,
@@ -456,17 +668,18 @@ def phase_serve(torch):
           f"{st['dispatches']}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
           f"launches {launches}", flush=True)
-    profile_wave(torch, eng, stream(rng, cfg.vocab_size, heads, 8))
-    del eng, model
+    profile_wave(torch, eng, [(p, 0, 0) for p in
+                              stream(rng, cfg.vocab_size, heads, 8)])
+    del eng
     torch.cuda.empty_cache()
     return launches, st
 
 
-def profile_wave(torch, eng, wave):
-    """Where a serving wave's time goes: one more wave of misses (after the
-    main path's launch counts were read) under ``torch.profiler``; prints
-    the wall time, the device's busy and idle shares, and the kernels that
-    took the most device time."""
+def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
+    """Where a serving wave's time goes: one more wave (after the path's
+    launch counts were read) of (prompt, node, cluster) requests under
+    ``torch.profiler``; prints the wall time, the device's busy and idle
+    shares, and the kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -474,8 +687,8 @@ def profile_wave(torch, eng, wave):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in wave:
-            eng.submit(p)
+        for p, node, clu in wave:
+            eng.submit(p, node_id=node, cluster_id=clu)
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -483,11 +696,11 @@ def profile_wave(torch, eng, wave):
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     if busy_us <= 0:
-        print("serve: profile: device time not measured (the profiler saw "
-              "no kernel)", flush=True)
+        print(f"{label}: device time not measured (the profiler saw no "
+              "kernel)", flush=True)
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"serve: profile wave 3 ({len(wave)} misses): wall "
+    print(f"{label} ({len(wave)} requests): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
@@ -495,7 +708,290 @@ def profile_wave(torch, eng, wave):
 
 
 # ---------------------------------------------------------------------------
-# 4. kernel path vs plain path, end to end
+# 4. the federated path at full width
+# ---------------------------------------------------------------------------
+
+
+# The floor from which IVF-PQ candidates go to the exact confirm.  No
+# CoICConfig field sets it; the smoke sets 0.0, the value of the
+# reference's own IVF-PQ tests (tests/test_digest.py, _ANN), because at
+# the federation's default, 0.5, the waves below serve none of the 8
+# remote prompts on an H100 (PERF.md, Findings): the codebook is trained
+# on the first cluster's 8 digest rows alone, so the PQ scores of the
+# other cluster's rows carry no calibrated scale.  phase_federated reads
+# the default's hits first, every run.  The confirm at the serve
+# threshold decides every serve either way: the floor moves recall, never
+# correctness.
+ANN_ADMISSION = 0.0
+
+
+def federated_engine(torch, model, lookup_impl="auto", dev="cuda",
+                     ann_admission=ANN_ADMISSION):
+    """``ServingEngine`` behind a 2-cluster x 2-node federation (IVF-PQ
+    digest board of 4 lists, 8 subspaces) with a membership plane; its
+    IVF-PQ candidates go to the exact confirm from a score of
+    ``ann_admission`` (None: the federation's default, 0.5)."""
+    from repro_torch.core.coic import CoICConfig
+    from repro_torch.core.membership import ClusterMembership
+    from repro_torch.serving.engine import ServingConfig, ServingEngine
+
+    mb = ClusterMembership(2, 2, timeout_s=60)
+    eng = ServingEngine(model, ServingConfig(
+        max_batch=8, max_len=512, max_new_tokens=16, kv_page=16,
+        prefill_chunk=128, attn_impl="paged",
+        coic=CoICConfig(capacity=512, threshold=0.98, k_layers=2,
+                        num_nodes=2, num_clusters=2, digest_size=64,
+                        digest_interval=1, digest_ann="ivfpq",
+                        digest_ann_lists=4, digest_ann_sub=8,
+                        digest_ann_probe=4, lookup_impl=lookup_impl)),
+        membership=mb, device=dev)
+    if ann_admission is not None:
+        eng.sem_fed.cfg = dataclasses.replace(eng.sem_fed.cfg,
+                                              ann_admission=ann_admission)
+    return eng, mb
+
+
+FED_PLAN = [[("A", 0, 0), ("B", 1, 0)], [("A", 0, 1), ("B", 0, 0)],
+            [("B", 1, 1)]]                 # per wave: (set, cluster, node)
+FED_REQUESTS = 8 * sum(map(len, FED_PLAN))  # 8 prompts per set: 40
+
+
+def federated_waves(torch, eng, mb, vocab, host=None):
+    """Three waves through a federated engine: (1) 8 prompts A at (cluster
+    0, node 0) and 8 prompts B at (1, 0), all misses; (2) A at (0, 1), peer
+    hits, and B at (0, 0), remote hits through the digest board; then
+    cluster 1 is killed and (3) B at (1, 1) reroutes to cluster 0.  Returns
+    the prompts and, per wave, {(set, i): (source, tokens)} with its wall
+    time, step count and the host times gathered in ``host`` (emptied
+    after each wave)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    sets = {name: [rng.integers(0, vocab, size=(int(n),)).astype(np.int32)
+                   for n in rng.integers(96, 321, size=8)]
+            for name in ("A", "B")}
+    waves = []
+    for w, groups in enumerate(FED_PLAN):
+        if w == 2:
+            mb.kill_cluster(1)
+        n0, steps0 = len(eng.results), eng.step_count
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        key_of = {}
+        for name, clu, node in groups:
+            for i, p in enumerate(sets[name]):
+                key_of[eng.submit(p, node_id=node, cluster_id=clu)] = (name,
+                                                                      i)
+        eng.run_until_drained()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        waves.append({"dt": time.perf_counter() - t0,
+                      "steps": eng.step_count - steps0,
+                      "recs": {key_of[r.req_id]: (r.source,
+                                                  tuple(r.tokens.tolist()))
+                               for r in eng.results[n0:]},
+                      "host": dict(host or {})})
+        if host:
+            host.clear()
+    return sets, waves
+
+
+def _timed(store, name, fn):
+    """Wrap ``fn`` to append its host wall ms to ``store[name]``."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def _recorded(store, fn):
+    """Wrap a kernel wrapper to keep each call's arguments and outputs."""
+    def call(*args):
+        out = fn(*args)
+        store.append((args, out))
+        return out
+    return call
+
+
+def phase_federated(torch, model):
+    import repro_torch.kernels.ivf_pq.ops as ivf_ops
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    # the remote rung's recall at the federation's default ANN floor
+    eng, mb = federated_engine(torch, model, ann_admission=None)
+    federated_waves(torch, eng, mb, model.cfg.vocab_size)
+    st, fed = eng.stats(), eng.sem_fed
+    print(f"fed: default ANN floor {fed.cfg.ann_admission}: peer "
+          f"{st['peer_hits']}, remote {st['remote_hits']}, cloud "
+          f"{st['cloud']}, digest false hits {fed.digest_false_hits}, tier "
+          f"counts {fed.tier_counts}", flush=True)
+    del eng, mb, fed
+    torch.cuda.empty_cache()
+
+    eng, mb = federated_engine(torch, model)
+    fed = eng.sem_fed
+    host = {}
+    fed.refresh_digests = _timed(host, "refresh_digests",
+                                 fed.refresh_digests)
+    fed.board.ann_index = _timed(host, "ann_index", fed.board.ann_index)
+    probes = []                            # K6 as the remote rung calls it
+    kernel_fn = ivf_ops.ivf_pq_probe_cuda
+    ivf_ops.ivf_pq_probe_cuda = _recorded(probes, kernel_fn)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # the federated path starts here
+    sets, waves = federated_waves(torch, eng, mb, model.cfg.vocab_size,
+                                  host)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)              # ... and ends here
+    ivf_ops.ivf_pq_probe_cuda = kernel_fn
+    on_path = check_ivf_pq_on_path(torch, probes, launches["ivf_pq_probe"])
+    st = eng.stats()
+    for w, wave in enumerate(waves, 1):
+        h = wave["host"]
+        srcs = [src for src, _ in wave["recs"].values()]
+        gen = sum(len(t) for src, t in wave["recs"].values()
+                  if src == "cloud")
+        dt = wave["dt"]
+        print(f"fed: wave {w}: {len(srcs)} requests ("
+              + ", ".join(f"{n} {srcs.count(n)}" for n in sorted(set(srcs)))
+              + f"), {gen} tokens generated in {dt:.3f} s "
+              f"({gen / dt:.1f} tok/s), {wave['steps']} steps, mean step "
+              f"{dt / max(1, wave['steps']) * 1e3:.2f} ms; host "
+              + ", ".join(f"{k} {len(v)} calls {sum(v):.2f} ms (max "
+                          f"{max(v):.2f})" for k, v in sorted(h.items())),
+              flush=True)
+    # every hit serves exactly the tokens wave 1 computed for its prompt
+    first = waves[0]["recs"]
+    assert all(src == "cloud" for src, _ in first.values()), "wave 1"
+    n_req = sum(len(w["recs"]) for w in waves)
+    assert n_req == FED_REQUESTS == st["completed"], (n_req, st["completed"])
+    for wave in waves[1:]:
+        for key, (src, toks) in wave["recs"].items():
+            assert src == "cloud" or toks == first[key][1], ("phantom", key,
+                                                             src)
+    assert st["peer_hits"] >= 1 and st["remote_hits"] >= 1, st
+    assert fed.board.tombstones == 1, fed.board.tombstones
+    assert fed.max_ladder_dispatches <= 4, fed.max_ladder_dispatches
+    assert st["max_step_ladder"] <= 2, st["max_step_ladder"]
+    probe_ms = {r.name: fed.metrics.histogram(
+        f"ladder/probe_ms/{r.name}").snapshot() for r in fed.ladder.rungs}
+    print(f"fed: {st['completed']} completed (edge {st['edge_hits']}, peer "
+          f"{st['peer_hits']}, remote {st['remote_hits']}, cloud "
+          f"{st['cloud']}), tier counts {fed.tier_counts}, tombstones "
+          f"{fed.board.tombstones}, max_ladder_dispatches "
+          f"{fed.max_ladder_dispatches}, max_step_ladder "
+          f"{st['max_step_ladder']}, membership {st['membership']}, "
+          "probe_ms " + ", ".join(
+              f"{n} mean {v['mean']:.3f} max {v['max']:.3f} x{v['count']}"
+              for n, v in probe_ms.items())
+          + f", peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB, launches {launches}", flush=True)
+
+    # a profiled fourth wave (after the path's counts were read): cluster 1
+    # revives cold; 8 new prompts miss at (1, 0) while B at (1, 1) is
+    # served remotely from cluster 0
+    import numpy as np
+    mb.revive_cluster(1)
+    rng = np.random.default_rng(2)
+    fresh = [rng.integers(0, model.cfg.vocab_size, size=(int(n),))
+             .astype(np.int32) for n in rng.integers(96, 321, size=8)]
+    host.clear()
+    profile_wave(torch, eng, [(p, 0, 1) for p in fresh]
+                 + [(p, 1, 1) for p in sets["B"]], label="fed: profile wave 4")
+    srcs = [r.source for r in eng.results[FED_REQUESTS:]]
+    print("fed: profile wave 4 sources "
+          + ", ".join(f"{n} {srcs.count(n)}" for n in sorted(set(srcs)))
+          + "; host " + ", ".join(f"{k} {len(v)} calls {sum(v):.2f} ms"
+                                  for k, v in sorted(host.items())),
+          flush=True)
+    return launches, eng, sets["A"] + sets["B"], on_path
+
+
+def check_ivf_pq_on_path(torch, probes, n_launches):
+    """K6 at the shape the federated path gave it: each launch the remote
+    rung made, held against the plain version on the same tensors (scores
+    within 1e-4, sel and idx equal but for near ties), then timed there."""
+    assert len(probes) == n_launches > 0, (len(probes), n_launches)
+    from repro_torch.kernels.ivf_pq.kernel import ivf_pq_probe_cuda
+    from repro_torch.kernels.ivf_pq.ref import ivf_pq_probe_ref
+
+    err, excused = 0.0, 0
+    for args, out in probes:
+        e, x = ivf_pq_agree(torch, list(args[:8]), args[8], args[9], out)
+        err, excused = max(err, e), excused + x
+    args, out = probes[0]
+    timer = Timer(torch)
+    (Q, D), (L, cap, S), k, n_probe = (args[0].shape, args[4].shape,
+                                       args[8], args[9])
+    b_ms, b_by, _ = ivf_pq_bound(torch, args, out[2])
+    on_path = {
+        "shape": f"Q={Q} L={L} cap={cap} S={S} D={D} n_probe={n_probe} k={k}",
+        "launches": n_launches, "max_abs_err": err, "rows_excused": excused,
+        "ms": timer(lambda: ivf_pq_probe_cuda(*args)),
+        "plain_ms": timer(lambda: ivf_pq_probe_ref(*args[:8], k=k,
+                                                   n_probe=n_probe)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    print(f"fed: K6 on the path ({on_path['shape']}): {n_launches} launch(es) "
+          f"== plain (max score err {err:.3g}, {excused} rows excused by "
+          f"near ties); {on_path['ms']:.4f} ms (plain "
+          f"{on_path['plain_ms']:.4f}, bound {b_ms:.5f} by {b_by})",
+          flush=True)
+    return on_path
+
+
+# ---------------------------------------------------------------------------
+# 5. K4 on its path: the membership-aware pooled lookup
+# ---------------------------------------------------------------------------
+
+
+def phase_surviving(torch, model, eng, prompts):
+    """``surviving_topk_lookup`` over cluster 0's shard stacks with node 1
+    marked dead, through the kernel and the plain version: equal indices,
+    scores within 1e-5; every A and B prompt (cached at node 0) is found
+    there."""
+    import numpy as np
+
+    from repro_torch.core.descriptor import PrefixDescriptor
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.parallel.sharding import surviving_topk_lookup
+
+    S = max(len(p) for p in prompts)
+    toks = np.full((len(prompts), S), -1, np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    keys, valid, _ = eng.sem_fed.clusters[0]._stacks()
+    desc = PrefixDescriptor(model, k_layers=2)(torch.as_tensor(
+        toks, device=keys.device))
+    alive = np.array([True, False])
+    C = keys.shape[1]
+    torch.cuda.synchronize()
+    reset_launches()                       # the K4 path starts here
+    out = {k: surviving_topk_lookup(desc, keys, valid, alive, k)
+           for k in (1, 4)}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)              # ... and ends here
+    err = 0.0
+    for k, (ci, cs) in out.items():
+        ri, rs = surviving_topk_lookup(desc, keys, valid, alive, k,
+                                       impl="ref")
+        assert torch.equal(ci, ri), ("surviving_topk_lookup idx", k)
+        err = max(err, float((cs - rs).abs().max()))
+        assert err <= 1e-5, ("surviving_topk_lookup score", k, err)
+    idx, score = out[1]
+    assert bool((score[:, 0] >= 0.98).all()), score[:, 0]
+    assert bool((idx[:, 0] < C).all()), "a hit from the dead node"
+    print(f"k4: surviving_topk_lookup over {keys.shape[0]} shards x {C} "
+          f"(node 1 dead), Q={len(prompts)}, k=1,4: kernel == plain "
+          f"(max score err {err:.3g}), all {len(prompts)} found on node 0, "
+          f"launches {launches['similarity_topk']}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 6. kernel path vs plain path, end to end
 # ---------------------------------------------------------------------------
 
 
@@ -531,6 +1027,28 @@ def phase_e2e(torch):
     print(f"e2e: coic-paper fp32, {len(out['paged'])} requests ({n_hit} edge "
           "hits): tokens and sources identical through the paged kernel and "
           "the gather path", flush=True)
+
+
+def phase_federated_e2e(torch):
+    """coic-paper fp32 through the federated waves, lookup_impl "auto"
+    (the similarity and IVF-PQ kernels) vs "ref" (their plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("coic-paper"), dtype="float32")
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    out = {}
+    for impl in ("auto", "ref"):
+        eng, mb = federated_engine(torch, model, lookup_impl=impl)
+        _, waves = federated_waves(torch, eng, mb, cfg.vocab_size)
+        out[impl] = ([w["recs"] for w in waves],
+                     eng.sem_fed.tier_counts)
+    assert out["auto"] == out["ref"], "federated kernel and plain paths differ"
+    recs, tiers = out["auto"]
+    print(f"e2e: coic-paper fp32 federated, {sum(map(len, recs))} requests "
+          f"(tier counts {tiers}): tokens, sources and tier counts identical "
+          "through the kernels and the plain versions", flush=True)
 
 
 if __name__ == "__main__":

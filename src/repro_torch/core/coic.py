@@ -8,10 +8,13 @@ Workflow per batch of requests (paper §2, Figure 1):
   3. hit  -> cached result returns immediately
   4. miss -> forward to cloud, compute, insert into the edge cache
 
-The serving path is ONE ``TierLadder`` composing the edge org (a
-one-node ``CooperativeEdgeCluster`` in this slice) and ``CloudRung``.
-Several nodes, the cross-cluster federation and the membership plane are
-not ported yet (ROADMAP.md Queue 1 items 10-11) and raise.
+The serving path is ONE ``TierLadder`` composing two org-level
+``CacheTier``s: the edge org — a ``CooperativeEdgeCluster``
+(``num_nodes >= 1``; a 1-node cluster IS the paper's single edge cache) or
+a ``FederatedEdgeTier`` (``num_clusters > 1``) — and ``CloudRung``, which
+serves whatever the edge rungs left, inserting results back into the home
+shard.  A ``ClusterMembership`` control plane reroutes requests aimed at
+dead targets.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.core.cluster import ClusterConfig, CooperativeEdgeCluster
 from repro_torch.core.descriptor import NgramSketchDescriptor, PrefixDescriptor
+from repro_torch.core.federation import FederatedEdgeTier, FederationConfig
 from repro_torch.core.hash_cache import HashCache, content_hash
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.policies import EvictionPolicy
@@ -59,21 +63,62 @@ class CoICConfig:
     share: bool = True               # peer tier on local miss
     admission: str = "always"        # always | never | second_hit |
                                      # freq_weighted
-    # cross-cluster federation tier; 1 == one cluster (its digest knobs
-    # arrive with the federation slice)
+    # cross-cluster federation tier (core/federation.py); 1 == one cluster
     num_clusters: int = 1
+    federate: bool = True            # remote rung on local+peer miss
+    digest_size: int = 128           # top-M hottest keys per cluster digest
+    digest_interval: int = 4         # steps between digest refreshes
+    digest_quant: str = "fp32"       # fp32 | int8 digest wire format
+    digest_refresh: str = "full"     # full | delta (push-on-delta)
+    # ANN digest probing (kernels/ivf_pq): "auto" swaps the brute board
+    # scan for the two-stage IVF-PQ probe once the board passes
+    # digest_ann_min_rows live rows; "ivfpq" forces it, "off" disables
+    digest_ann: str = "auto"
+    digest_ann_min_rows: int = 4096
+    digest_ann_lists: int = 64       # coarse inverted lists
+    digest_ann_sub: int = 8          # PQ subspaces (key_dim % sub == 0)
+    digest_ann_probe: int = 8        # lists scanned per query
 
 
-def check_single_cluster(cfg: CoICConfig, membership) -> None:
-    """The org shapes this slice serves: one cluster, no membership."""
-    if cfg.num_clusters > 1:
-        raise NotImplementedError(
-            "the cross-cluster federation (num_clusters > 1) is not ported "
-            "yet (ROADMAP.md Queue 1 item 11, slice 3)")
-    if membership is not None:
-        raise NotImplementedError(
-            "the membership control plane is not ported yet (ROADMAP.md "
-            "Queue 1 item 11, slice 3)")
+def build_edge_org(c: CoICConfig, cluster_cfg: ClusterConfig, metrics,
+                   tracer, device):
+    """(cluster, federation) for a CoIC config: a cross-cluster federation
+    when ``num_clusters > 1``, else one cooperative cluster; the other is
+    None."""
+    if c.num_clusters > 1:
+        return None, FederatedEdgeTier(FederationConfig(
+            num_clusters=c.num_clusters, cluster=cluster_cfg,
+            digest_size=c.digest_size, digest_interval=c.digest_interval,
+            digest_quant=c.digest_quant, digest_refresh=c.digest_refresh,
+            share=c.federate, ann_mode=c.digest_ann,
+            ann_min_rows=c.digest_ann_min_rows, ann_lists=c.digest_ann_lists,
+            ann_sub=c.digest_ann_sub, ann_probe=c.digest_ann_probe),
+            metrics=metrics, tracer=tracer, device=device)
+    return CooperativeEdgeCluster(cluster_cfg, metrics=metrics,
+                                  tracer=tracer, device=device), None
+
+
+def wire_membership(membership, cluster, federation) -> None:
+    """Attach a ``ClusterMembership`` control plane to an edge org: the
+    federation listens itself (tombstones, wipes, pin re-election); a
+    single cluster wires node churn straight to its shard masks."""
+    if membership is None:
+        return
+    if federation is not None:
+        federation.attach_membership(membership)
+        return
+
+    def on_event(ev) -> None:
+        if ev.kind == "node_dead":
+            cluster.kill_node(ev.node)
+        elif ev.kind == "node_alive":
+            cluster.revive_node(ev.node)
+        elif ev.kind in ("cluster_dead", "cluster_alive"):
+            cluster.wipe()
+            if ev.kind == "cluster_alive":
+                cluster.node_alive[:] = True
+
+    membership.add_listener(on_event)
 
 
 @dataclasses.dataclass
@@ -154,7 +199,6 @@ class CoICEngine:
                  miss_bucket: Optional[int] = None,
                  tracer=None, metrics: Optional[MetricsRegistry] = None,
                  membership=None, device="cuda"):
-        check_single_cluster(cfg, membership)
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -183,18 +227,21 @@ class CoICEngine:
             threshold=cfg.threshold, payload_dtype=cfg.payload_dtype,
             policy=cfg.policy, lookup_impl=cfg.lookup_impl,
             admission=cfg.admission, share=cfg.share)
-        # a 1-node cluster IS the single isolated edge cache
-        self.cluster = CooperativeEdgeCluster(
-            cluster_cfg, metrics=self.metrics, tracer=self.trace,
-            device=self.device)
-        self.federation = None
-        self.edge = self.cluster
-        self.cache = self.cluster.cache
+        self.cluster, self.federation = build_edge_org(
+            cfg, cluster_cfg, self.metrics, self.trace, self.device)
+        self.edge = self.federation or self.cluster
+        self.cache = (self.federation.clusters[0] if self.federation
+                      else self.cluster).cache
         # the serve ladder gets its own registry prefix so its counters
         # (edge-org rung + cloud rung) don't collide with the org ladder's
         self.ladder = TierLadder([self.edge, CloudRung(self)],
                                  metrics=self.metrics,
                                  prefix="engine_ladder", tracer=self.trace)
+        # membership control plane (core/membership.py): requests aimed at
+        # a dead cluster/node reroute deterministically; the federation
+        # tombstones/re-elects on detected deaths.  None == static grid.
+        self.membership = membership
+        wire_membership(membership, self.cluster, self.federation)
         self.asset_cache = HashCache()
         self.deadline = DeadlineStats(self.metrics)
         self._timings = {"descriptor_ms": [], "lookup_ms": [], "cloud_ms": []}
@@ -221,10 +268,11 @@ class CoICEngine:
     def process_batch(self, tokens: np.ndarray, node_id: int = 0,
                       cluster_id: int = 0,
                       deadline_ms=None) -> List[RequestResult]:
-        """tokens: (B, S) int32 request batch arriving at edge ``node_id``.
-        Returns per-request results with CoIC and origin-baseline latency
-        breakdowns; ``deadline_ms`` (scalar or (B,), None/NaN == bulk)
-        stamps each breakdown and accumulates in ``self.deadline``."""
+        """tokens: (B, S) int32 request batch arriving at edge ``node_id``
+        of cluster ``cluster_id``.  Returns per-request results with CoIC
+        and origin-baseline latency breakdowns; ``deadline_ms`` (scalar or
+        (B,), None/NaN == bulk) stamps each breakdown and accumulates in
+        ``self.deadline``."""
         tokens = np.asarray(tokens)
         B = tokens.shape[0]
         if deadline_ms is None:
@@ -235,10 +283,14 @@ class CoICEngine:
         else:
             deadlines = [None if d is None or np.isnan(d) else float(d)
                          for d in np.asarray(deadline_ms, object)]
+        if self.membership is not None:
+            # degraded routing: a dead target remaps to the nearest alive
+            # (cluster, node) before packing
+            cluster_id, node_id = self.membership.route(cluster_id, node_id)
         desc_np = self._descriptors(tokens)
         per_req_desc_ms = self._timings["descriptor_ms"][-1] / B
 
-        # one ladder walk: edge org then cloud
+        # one ladder walk: edge org (local -> peer -> remote) then cloud
         K, N = org_grid(self.edge)
         queries, mask, rows_of = pack_flat(
             desc_np, [node_id] * B, [cluster_id] * B, K, N)
@@ -269,10 +321,20 @@ class CoICEngine:
         edge_hit = tier != TIER_MISS
 
         # per-tier amortization: the batch shares one descriptor extraction
-        # and one probe dispatch (no peer / region tiers in this slice)
+        # and one probe dispatch; local misses share ONE peer broadcast, and
+        # everything escalating past the peer tier shares ONE metro->region
+        # digest probe — each request's breakdown carries its share
         n_local_miss = int((tier != TIER_LOCAL).sum())
+        peer_on = self.cfg.share and self.cfg.num_nodes > 1
+        peer_share_ms = (self.router.peer_broadcast_ms(n_local_miss)
+                         if peer_on else 0.0)
+        region_on = (self.federation is not None and self.cfg.federate
+                     and self.cfg.num_clusters > 1)
+        n_escalated = int((tier >= TIER_REMOTE).sum()) if region_on else 0
+        region_share_ms = (self.router.region_broadcast_ms(n_escalated)
+                           if region_on else 0.0)
         batch_of = {TIER_LOCAL: B, TIER_PEER: max(1, n_local_miss),
-                    TIER_REMOTE: 1, TIER_MISS: B}
+                    TIER_REMOTE: max(1, n_escalated), TIER_MISS: B}
 
         results = []
         for b in range(B):
@@ -281,6 +343,8 @@ class CoICEngine:
             src = SOURCE_OF[name]
             lat = self.router.tier_latency(
                 name, per_req_desc_ms, lookup_ms, batch=batch_of[t],
+                peer_net_ms=(peer_share_ms if t >= TIER_REMOTE else 0.0),
+                remote_net_ms=(region_share_ms if t == TIER_MISS else 0.0),
                 cloud_compute_ms=float(cloud_ms[b]))
             lat.deadline_ms = deadlines[b]
             self.deadline.observe(src, lat.total_ms, deadlines[b])
@@ -320,6 +384,8 @@ class CoICEngine:
         s["digest"] = digest_block(self.federation)
         s["asset_cache"] = self.asset_cache.stats()
         s["deadline"] = self.deadline.as_dict()
+        if self.membership is not None:
+            s["membership"] = self.membership.stats()
         return s
 
 

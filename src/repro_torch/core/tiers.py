@@ -12,9 +12,9 @@ The port of ``repro/core/tiers.py`` (see it for the full design):
 
 Tier codes are canonical across every layer (``local=0, peer=1,
 remote=2, miss=3``).  Host-side arrays stay numpy; the rungs move them to
-the cache's device for the probe launch.  This slice ports ``LocalRung``;
-``PeerRung`` exists for the one-node cluster, where it has nothing to do
-(as in the reference), and the N > 1 probe waits for slice 2.
+the cache's device for the probe launch.  ``LocalRung`` and ``PeerRung``
+live here; the federation's ``RemoteDigestRung`` lives in
+``core/federation.py``.
 """
 from __future__ import annotations
 
@@ -83,11 +83,14 @@ class CacheTier(Protocol):
 
 @dataclasses.dataclass
 class ProbeContext:
-    """Per-step shared state for the intra-org rungs: the stacked
-    key/valid tensors the batched kernel scans.  (The peer rung of slice 2
-    adds the reference's pre-step shard snapshot.)"""
+    """Per-step shared state for the intra-org rungs: the pre-step shard
+    snapshot every rung's probe and payload read resolves against (so an
+    earlier rung's admissions never change what a later rung serves —
+    ``SemanticCache`` ops build new tensors, so a snapshot is a list of
+    references), plus the stacked key/valid tensors the kernels scan."""
 
     clusters: List                  # CooperativeEdgeCluster per cluster
+    pre_states: List[List]          # (K, N) SemanticCacheState snapshot
     keys: torch.Tensor              # (K, N, C, D)
     valid: torch.Tensor             # (K, N, C)
     alive: List[List]               # (K, N) TTL-expiry masks
@@ -97,6 +100,7 @@ def build_probe_context(clusters: Sequence) -> ProbeContext:
     stacks = [cl._stacks() for cl in clusters]
     return ProbeContext(
         clusters=list(clusters),
+        pre_states=[list(cl.states) for cl in clusters],
         keys=torch.stack([s[0] for s in stacks]),
         valid=torch.stack([s[1] for s in stacks]),
         alive=[s[2] for s in stacks])
@@ -155,20 +159,50 @@ class LocalRung:
 
 
 class PeerRung:
-    """Rung 2: each cluster's pooled shards.  A one-node cluster (the only
-    one this slice builds) has no peers, so the rung has nothing to do and
-    issues no dispatch — the reference's own N == 1 branch.  The N > 1
-    probe is ROADMAP.md Queue 1 item 10 (slice 2)."""
+    """Rung 2: each cluster's pooled shards, ONE batched launch spanning
+    every shard of every cluster.  Serves from the pre-step snapshot (an
+    earlier group's admission must not change a later group's payload),
+    touches the owning shard, applies the admission policy, and rebates the
+    home shard's miss counter for served rows so hits + misses ==
+    requests.  (A cluster on a real cache-axis mesh — the reference's
+    collective branch — cannot be built yet: ROADMAP.md Queue 1 item 12.)"""
 
     name, code = "peer", TIER_PEER
 
     def probe(self, queries, mask, ctx: ProbeContext):
-        cfg = ctx.clusters[0].cfg
-        N = queries.shape[1]
+        clusters = ctx.clusters
+        cfg = clusters[0].cfg
+        K, N, B, D = queries.shape
+        C = cfg.node_capacity
         if not (cfg.share and N > 1 and mask.any()):
             return None
-        raise NotImplementedError("the peer rung over N > 1 nodes is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 10)")
+        dev = ctx.keys.device
+        q_dev = torch.as_tensor(queries, device=dev)
+        g_idx, g_score = similarity_topk_batched(
+            q_dev.reshape(K, N * B, D), ctx.keys.reshape(K, N * C, D),
+            ctx.valid.reshape(K, N * C), 1, impl=cfg.lookup_impl)
+        g_idx = _np(g_idx)[..., 0].reshape(K, N, B)
+        g_score = _np(g_score)[..., 0].reshape(K, N, B)
+
+        hit, tier, cluster, owner, score, value = empty_probe_arrays(
+            queries, cfg.payload_dim, cfg.payload_dtype)
+        for k, cl in enumerate(clusters):
+            for g in range(N):
+                miss_rows = np.nonzero(mask[k, g])[0]
+                if not miss_rows.size:
+                    continue
+                n_served = cl.serve_peer_hits(
+                    g, q_dev[k, g], miss_rows, g_idx[k, g][miss_rows],
+                    g_score[k, g][miss_rows], hit[k, g], tier[k, g],
+                    owner[k, g], score[k, g], value[k, g],
+                    snapshot=ctx.pre_states[k])
+                if n_served:
+                    cl.states[g] = dataclasses.replace(
+                        cl.states[g],
+                        misses=cl.states[g].misses - n_served)
+            cluster[k][hit[k]] = k
+        return TierProbeResult(hit, tier, cluster, owner, score, value,
+                               dispatches=1)
 
 
 class TierLadder:

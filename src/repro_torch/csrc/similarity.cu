@@ -1,11 +1,13 @@
 // Similarity top-k over the CoIC edge-cache keys, for NVIDIA Hopper (sm_90a).
 //
-// Replaces three TPU kernels of src/repro/kernels/similarity/kernel.py:
+// Replaces four TPU kernels of src/repro/kernels/similarity/kernel.py:
 //   similarity_topk_batched_kernel (_topk_batched_kernel, _topk_tile)
 //   similarity_lookup_kernel       (_lookup_kernel)
 //   similarity_topk_touch_kernel   (_topk_touch_kernel)
-// with ONE kernel: the lookup is its k = 1, N = 1 launch, and the touch
-// variant adds an epilogue in the same launch.
+//   similarity_topk_kernel         (_topk_kernel, _topk_tile)
+// with ONE kernel: the single-matrix top-k is its N = 1 launch (its own C
+// entry, similarity_topk_single_launch), the lookup its k = 1, N = 1
+// launch, and the touch variant adds an epilogue in the same launch.
 //
 // What bounds it on the H100: reading the keys.  One probe streams the
 // (C, D) fp32 key matrix of each group once (C * D * 4 bytes, 4 MiB at
@@ -17,6 +19,10 @@
 // Design, simple and right first:
 //   * one block per (group n, query row q); the query row sits in shared
 //     memory; 8 warps split the cache rows c = warp, warp + 8, ...;
+//   * groups may share one key matrix (shared_keys != 0): the federation's
+//     digest probe scores every home cluster's misses against the same
+//     pooled board under a per-group validity mask, without a copy of the
+//     board per group;
 //   * a warp scores one key row at a time: each lane reads a strided D/32
 //     slice (neighbouring lanes on neighbouring addresses), a shuffle
 //     reduction gives the dot, and an invalid slot scores -1e30;
@@ -68,7 +74,8 @@ topk_kernel(const float* __restrict__ q, const float* __restrict__ keys,
             const uint8_t* __restrict__ valid, int Q, int C, int D, int k,
             int* __restrict__ out_idx, float* __restrict__ out_score,
             const uint8_t* __restrict__ qmask, int* last_used, int* freq,
-            const int* __restrict__ clock, float threshold, int touch) {
+            const int* __restrict__ clock, float threshold, int touch,
+            int shared_keys) {
   extern __shared__ float smem[];
   float* qs = smem;                                   // (D,) query row
   float* cand_s = smem + D;                           // (kWarps, KM)
@@ -86,7 +93,8 @@ topk_kernel(const float* __restrict__ q, const float* __restrict__ keys,
     ls[j] = -INFINITY;                                // sentinel, loses to
     li[j] = INT_MAX;                                  // every real slot
   }
-  const float* kbase = keys + static_cast<size_t>(n) * C * D;
+  const float* kbase =
+      keys + (shared_keys ? size_t{0} : static_cast<size_t>(n) * C * D);
   const uint8_t* vbase = valid + static_cast<size_t>(n) * C;
   for (int c = warp; c < C; c += kWarps) {
     const float* krow = kbase + static_cast<size_t>(c) * D;
@@ -129,7 +137,7 @@ template <int KM>
 int launch(const void* q, const void* keys, const void* valid, int N, int Q,
            int C, int D, int k, void* out_idx, void* out_score,
            const void* qmask, void* last_used, void* freq, const void* clock,
-           float threshold, int touch, cudaStream_t stream) {
+           float threshold, int touch, int shared_keys, cudaStream_t stream) {
   const size_t smem = D * sizeof(float) + kWarps * KM * (sizeof(float) +
                                                          sizeof(int));
   if (smem > 48 * 1024)
@@ -142,34 +150,57 @@ int launch(const void* q, const void* keys, const void* valid, int N, int Q,
       static_cast<int*>(out_idx), static_cast<float*>(out_score),
       static_cast<const uint8_t*>(qmask), static_cast<int*>(last_used),
       static_cast<int*>(freq), static_cast<const int*>(clock), threshold,
-      touch);
+      touch, shared_keys);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One dispatcher for every entry: the top-k list length KM is a template
+// argument (k <= 1, 8 or 32).
+int dispatch(const void* q, const void* keys, const void* valid, int N, int Q,
+             int C, int D, int k, void* out_idx, void* out_score,
+             const void* qmask, void* last_used, void* freq,
+             const void* clock, float threshold, int touch, int shared_keys,
+             cudaStream_t s) {
+  if (k <= 1)
+    return launch<1>(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
+                     last_used, freq, clock, threshold, touch, shared_keys, s);
+  if (k <= 8)
+    return launch<8>(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
+                     last_used, freq, clock, threshold, touch, shared_keys, s);
+  return launch<32>(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
+                    last_used, freq, clock, threshold, touch, shared_keys, s);
 }
 
 }  // namespace
 
-// q (N, Q, D) f32, keys (N, C, D) f32, valid (N, C) u8 -> out_idx (N, Q, k)
-// i32, out_score (N, Q, k) f32; 1 <= k <= min(32, C).  touch != 0 (N == 1
-// only): qmask (Q,) u8, last_used/freq (C,) i32 updated in place, clock
-// (1,) i32 on the device.
-// Returns cudaGetLastError() after the launch.
+// q (N, Q, D) f32, keys (N, C, D) f32 (or (C, D) shared by every group when
+// shared_keys != 0), valid (N, C) u8 -> out_idx (N, Q, k) i32, out_score
+// (N, Q, k) f32; 1 <= k <= min(32, C).  touch != 0 (N == 1 only): qmask
+// (Q,) u8, last_used/freq (C,) i32 updated in place, clock (1,) i32 on the
+// device.  Returns cudaGetLastError() after the launch.
 extern "C" int similarity_topk_launch(const void* q, const void* keys,
                                       const void* valid, int N, int Q, int C,
                                       int D, int k, void* out_idx,
                                       void* out_score, const void* qmask,
                                       void* last_used, void* freq,
                                       const void* clock, float threshold,
-                                      int touch,
+                                      int touch, int shared_keys,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 1)
-    return launch<1>(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
-                     last_used, freq, clock, threshold, touch, s);
-  if (k <= 8)
-    return launch<8>(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
-                     last_used, freq, clock, threshold, touch, s);
-  return launch<32>(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
-                    last_used, freq, clock, threshold, touch, s);
+  return dispatch(q, keys, valid, N, Q, C, D, k, out_idx, out_score, qmask,
+                  last_used, freq, clock, threshold, touch, shared_keys,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The single-matrix top-k (K4): q (Q, D) f32, keys (C, D) f32, valid (C,)
+// u8 -> out_idx (Q, k) i32, out_score (Q, k) f32; 1 <= k <= min(32, C).
+// Returns cudaGetLastError() after the launch.
+extern "C" int similarity_topk_single_launch(const void* q, const void* keys,
+                                             const void* valid, int Q, int C,
+                                             int D, int k, void* out_idx,
+                                             void* out_score, void* stream) {
+  return dispatch(q, keys, valid, 1, Q, C, D, k, out_idx, out_score, nullptr,
+                  nullptr, nullptr, nullptr, 0.f, 0, 0,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* similarity_error_string(int err) {

@@ -35,7 +35,9 @@ LAUNCHES: Dict[str, int] = {
     "similarity_topk_batched": 0,
     "similarity_lookup": 0,
     "similarity_topk_touch": 0,
+    "similarity_topk": 0,
     "paged_attention": 0,
+    "ivf_pq_probe": 0,
 }
 
 # source stem -> loaded library
@@ -85,8 +87,8 @@ def _finish_build(stem: str, job) -> None:
     os.replace(tmp, out)            # atomic: a reader never sees half a .so
 
 
-def build_all(stems: Iterable[str] = ("similarity", "paged_attention")
-              ) -> None:
+def build_all(stems: Iterable[str] = ("similarity", "paged_attention",
+                                     "ivf_pq")) -> None:
     """Compile every kernel source at once (one ``nvcc`` per source, all
     started together) and load the libraries."""
     jobs = {s: _start_build(s) for s in stems}

@@ -1,4 +1,5 @@
 from repro_torch.kernels.similarity.ops import (similarity_lookup,
+                                                similarity_topk,
                                                 similarity_topk_batched,
                                                 similarity_topk_touch)
 from repro_torch.kernels.similarity.ref import (similarity_lookup_ref,

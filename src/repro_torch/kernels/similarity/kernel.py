@@ -1,8 +1,10 @@
 """ctypes wrappers of the CUDA similarity top-k kernel (``csrc/similarity.cu``).
 
-One C entry point serves the three TPU kernels it replaces
+One kernel serves the four TPU kernels it replaces
 (``similarity_topk_batched_kernel``, ``similarity_lookup_kernel``,
-``similarity_topk_touch_kernel``).  The wrappers check device, dtype,
+``similarity_topk_touch_kernel`` through ``similarity_topk_launch``;
+``similarity_topk_kernel`` through its own entry,
+``similarity_topk_single_launch``).  The wrappers check device, dtype,
 shape and contiguity, allocate the outputs with ``torch.empty``, launch on
 ``torch.cuda.current_stream()``, raise on a launch error, and count the
 launch in ``LAUNCHES``.  Padding and layout are ``ops.py``'s job.
@@ -27,7 +29,16 @@ def _fn():
         fn.argtypes = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
                        _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_int,
-                       _VP]
+                       ctypes.c_int, _VP]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _single_fn():
+    fn = load("similarity").similarity_topk_single_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, _VP, _VP, _VP]
         fn.restype = ctypes.c_int
     return fn
 
@@ -47,17 +58,23 @@ def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
 
 
-def _launch(name, queries, keys, valid, k, *, qmask=None, last_used=None,
-            freq=None, clock=None, threshold=0.0):
-    N, Q, D = queries.shape
-    C = keys.shape[1]
-    _need(queries, "queries", (torch.float32,), (N, Q, D))
-    _need(keys, "keys", (torch.float32,), (N, C, D))
-    _need(valid, "valid", _MASK_DTYPES, (N, C))
+def _check_shape(k, C, D):
     if not 1 <= k <= min(K_MAX, C):
         raise ValueError(f"k={k} must be in [1, min({K_MAX}, C={C})]")
     if D * 4 + 8 * K_MAX * 8 > _MAX_SMEM:
         raise ValueError(f"D={D} does not fit the kernel's shared memory")
+
+
+def _launch(name, queries, keys, valid, k, *, qmask=None, last_used=None,
+            freq=None, clock=None, threshold=0.0):
+    """``keys`` (N, C, D), or (C, D) shared by every group."""
+    N, Q, D = queries.shape
+    shared = keys.dim() == 2
+    C = keys.shape[-2]
+    _need(queries, "queries", (torch.float32,), (N, Q, D))
+    _need(keys, "keys", (torch.float32,), (C, D) if shared else (N, C, D))
+    _need(valid, "valid", _MASK_DTYPES, (N, C))
+    _check_shape(k, C, D)
     dev = queries.device
     idx = torch.empty((N, Q, k), dtype=torch.int32, device=dev)
     score = torch.empty((N, Q, k), dtype=torch.float32, device=dev)
@@ -72,7 +89,7 @@ def _launch(name, queries, keys, valid, k, *, qmask=None, last_used=None,
         err = _fn()(queries.data_ptr(), keys.data_ptr(), valid.data_ptr(),
                     N, Q, C, D, k, idx.data_ptr(), score.data_ptr(),
                     ptr(qmask), ptr(last_used), ptr(freq), ptr(clock),
-                    float(threshold), int(touch),
+                    float(threshold), int(touch), int(shared),
                     torch.cuda.current_stream(dev).cuda_stream)
         check("similarity", err, name)
         LAUNCHES[name] += 1
@@ -80,9 +97,33 @@ def _launch(name, queries, keys, valid, k, *, qmask=None, last_used=None,
 
 
 def similarity_topk_batched_cuda(queries, keys, valid, k: int):
-    """queries (N, Q, D) f32, keys (N, C, D) f32, valid (N, C) bool/u8 ->
-    (idx (N, Q, k) int32, score (N, Q, k) f32)."""
+    """queries (N, Q, D) f32, keys (N, C, D) f32 — or (C, D), one matrix
+    shared by every group — valid (N, C) bool/u8 -> (idx (N, Q, k) int32,
+    score (N, Q, k) f32)."""
     return _launch("similarity_topk_batched", queries, keys, valid, k)
+
+
+def similarity_topk_cuda(queries, keys, valid, k: int):
+    """The single-matrix top-k: queries (Q, D) f32, keys (C, D) f32, valid
+    (C,) bool/u8 -> (idx (Q, k) int32, score (Q, k) f32); an all-invalid
+    row gives indices 0..k-1 at -1e30."""
+    Q, D = queries.shape
+    C = keys.shape[0]
+    _need(queries, "queries", (torch.float32,), (Q, D))
+    _need(keys, "keys", (torch.float32,), (C, D))
+    _need(valid, "valid", _MASK_DTYPES, (C,))
+    _check_shape(k, C, D)
+    dev = queries.device
+    idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    score = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    if Q:
+        err = _single_fn()(queries.data_ptr(), keys.data_ptr(),
+                           valid.data_ptr(), Q, C, D, k, idx.data_ptr(),
+                           score.data_ptr(),
+                           torch.cuda.current_stream(dev).cuda_stream)
+        check("similarity", err, "similarity_topk")
+        LAUNCHES["similarity_topk"] += 1
+    return idx, score
 
 
 def similarity_lookup_cuda(queries, keys, valid):

@@ -19,10 +19,11 @@ import functools
 import torch
 
 from repro_torch.kernels.similarity.kernel import (
-    similarity_lookup_cuda, similarity_topk_batched_cuda,
+    similarity_lookup_cuda, similarity_topk_batched_cuda, similarity_topk_cuda,
     similarity_topk_touch_cuda)
 from repro_torch.kernels.similarity.ref import (similarity_lookup_ref,
                                                 similarity_topk_batched_ref,
+                                                similarity_topk_ref,
                                                 similarity_topk_touch_ref)
 from repro_torch.obs.profile import active, record_op, similarity_bytes
 
@@ -61,6 +62,26 @@ def similarity_lookup(queries: torch.Tensor, keys: torch.Tensor,
     return _run("similarity_lookup", impl, fn, (queries, keys, valid),
                 lambda: similarity_bytes(int(queries.shape[0]),
                                          int(keys.shape[0]),
+                                         int(queries.shape[1])))
+
+
+def similarity_topk(queries: torch.Tensor, keys: torch.Tensor,
+                    valid: torch.Tensor, k: int, *, impl: str = "auto"):
+    """Single-matrix top-k cache lookup (the pooled-shard primitive of
+    ``parallel/sharding.py``).  queries: (Q, D); keys: (C, D); valid: (C,)
+    bool.  Returns (idx (Q, k) int32, score (Q, k) f32), scores descending,
+    ties toward the lower cache index.  k must be <= C."""
+    C = int(keys.shape[0])
+    _check_k(k, C)
+    impl = resolve_impl(impl, queries)
+    if impl == "ref":
+        fn = functools.partial(similarity_topk_ref, k=k)
+    else:
+        fn = lambda q, ks, v: similarity_topk_cuda(       # noqa: E731
+            q.float().contiguous(), ks.float().contiguous(), v.contiguous(),
+            k)
+    return _run("similarity_topk", impl, fn, (queries, keys, valid),
+                lambda: similarity_bytes(int(queries.shape[0]), C,
                                          int(queries.shape[1])))
 
 
@@ -108,11 +129,14 @@ def similarity_topk_batched(queries: torch.Tensor, keys: torch.Tensor,
     """Grouped-query top-k: group ``n`` probes key matrix ``n`` only — one
     launch for N per-node shard lookups (the ladder's local rung).
 
-    queries: (N, Q, D); keys: (N, C, D); valid: (N, C) bool.  Returns (idx
-    (N, Q, k) int32, score (N, Q, k) f32), scores descending, ties toward
-    the lower cache index.  k must be <= C."""
+    queries: (N, Q, D); keys: (N, C, D), or (C, D) — one matrix every
+    group probes under its own ``valid`` row (the digest board; no copy
+    per group); valid: (N, C) bool.  Returns (idx (N, Q, k) int32, score
+    (N, Q, k) f32), scores descending, ties toward the lower cache index.
+    k must be <= C."""
     N, Q, D = (int(s) for s in queries.shape)
-    _check_k(k, int(keys.shape[1]))
+    C = int(keys.shape[-2])
+    _check_k(k, C)
     impl = resolve_impl(impl, queries)
     if impl == "ref":
         fn = functools.partial(similarity_topk_batched_ref, k=k)
@@ -120,5 +144,6 @@ def similarity_topk_batched(queries: torch.Tensor, keys: torch.Tensor,
         fn = lambda q, ks, v: similarity_topk_batched_cuda(  # noqa: E731
             q.float().contiguous(), ks.float().contiguous(), v.contiguous(),
             k)
+    n_keys = C if keys.dim() == 2 else N * C
     return _run("similarity_topk_batched", impl, fn, (queries, keys, valid),
-                lambda: similarity_bytes(N * Q, N * int(keys.shape[1]), D))
+                lambda: similarity_bytes(N * Q, n_keys, D))

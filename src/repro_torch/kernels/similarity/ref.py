@@ -74,10 +74,11 @@ def similarity_topk_touch_ref(queries: torch.Tensor, keys: torch.Tensor,
 def similarity_topk_batched_ref(queries: torch.Tensor, keys: torch.Tensor,
                                 valid: torch.Tensor, k: int):
     """Grouped top-k: queries (N, Q, D), keys (N, C, D), valid (N, C) —
-    group ``n`` is scored against key matrix ``n`` only.  Returns (idx
-    (N, Q, k) int32, score (N, Q, k) f32) with ``similarity_topk_ref``
-    semantics per group."""
-    scores = torch.einsum("nqd,ncd->nqc", queries.float(), keys.float())
+    group ``n`` is scored against key matrix ``n`` only (keys (C, D): one
+    matrix shared by every group).  Returns (idx (N, Q, k) int32, score
+    (N, Q, k) f32) with ``similarity_topk_ref`` semantics per group."""
+    eq = "nqd,cd->nqc" if keys.dim() == 2 else "nqd,ncd->nqc"
+    scores = torch.einsum(eq, queries.float(), keys.float())
     scores = torch.where(valid.bool()[:, None, :], scores, NEG_INF)
     vals, idx = _topk_desc(scores, k)
     return idx, vals

@@ -99,3 +99,28 @@ def similarity_bytes(n_queries: int, n_keys: int, dim: int,
     return (n_queries * dim * 4.0            # query block read
             + n_keys * (row + 1.0)           # key rows + valid bytes
             + meta_rows * 2 * 4.0 * 2)       # last_used+freq, read+write
+
+
+def digest_probe_bytes(n_queries: int, num_clusters: int, digest_size: int,
+                       dim: int, quant: str) -> float:
+    """Modeled bytes of one grouped region-board probe — the similarity
+    model over K digest replicas in their wire format (int8 rows carry
+    ``D + 4`` bytes, the ``DigestConfig.row_bytes`` model)."""
+    row_bytes = dim + 4 if quant == "int8" else dim * 4
+    return similarity_bytes(n_queries * num_clusters,
+                            num_clusters * digest_size, dim,
+                            key_bytes_per_row=row_bytes)
+
+
+def ivf_pq_probe_bytes(n_queries: int, n_lists: int, list_cap: int,
+                       n_sub: int, dim: int) -> float:
+    """Modeled device traffic of one two-stage IVF-PQ board probe (the
+    reference's model): the query tile, the coarse table (centroids +
+    validity byte per list), the shared residual codebook, and one
+    streaming read of the packed code lists — ``n_sub`` uint8 codes plus a
+    validity and an owner byte per slot.  The port stores the owner as
+    int32 (4 bytes per slot), so its measured bound counts that instead."""
+    return (n_queries * dim * 4.0                      # query tile
+            + n_lists * (dim * 4.0 + 1.0)              # centroids + valid
+            + n_sub * 256 * (dim // n_sub) * 4.0       # shared codebook
+            + n_lists * list_cap * (n_sub + 2.0))      # codes+valid+owner

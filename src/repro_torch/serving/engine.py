@@ -25,9 +25,11 @@ with donated caches, the port calls the model, which writes the page pool
 in place; ``engine/dispatches/*`` still counts one per call, so the
 per-step ladder bound (``max_step_ladder <= 2``) stays checkable.
 
-This slice serves ``kv_page > 0`` (the paged pool) with a one-node CoIC
-front.  The slotted cache (``kv_page == 0``), several nodes or clusters,
-and the membership plane raise ``NotImplementedError`` (ROADMAP.md).
+The port serves ``kv_page > 0`` (the paged pool) behind any CoIC org: a
+cooperative cluster of one or more nodes, or a cross-cluster federation,
+with an optional ``ClusterMembership`` control plane that reroutes
+requests aimed at dead targets.  The slotted cache (``kv_page == 0``)
+raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.cluster import ClusterConfig, CooperativeEdgeCluster
-from repro_torch.core.coic import SOURCE_OF, CoICConfig, check_single_cluster
+from repro_torch.core.cluster import ClusterConfig
+from repro_torch.core.coic import (SOURCE_OF, CoICConfig, build_edge_org,
+                                   wire_membership)
 from repro_torch.core.descriptor import NgramSketchDescriptor, PrefixDescriptor
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.router import (DeadlineStats, LatencyBreakdown,
@@ -178,7 +181,6 @@ class ServingEngine:
             raise NotImplementedError(
                 "attn_impl='paged_interpret' runs the Pallas interpreter; "
                 "the CUDA kernel has none — use 'paged' (or 'gather')")
-        check_single_cluster(cfg.coic or CoICConfig(), membership)
         self.model = model
         self.cfg = cfg
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -230,8 +232,9 @@ class ServingEngine:
             "engine/prefill_tokens_shared")
         self._truncated: set = set()
 
-        # CoIC front: a one-node cooperative cluster (the solo edge cache);
-        # the engine's own prefill/decode path is the ladder's cloud
+        # CoIC front: one ladder org — a cooperative cluster (1-node for the
+        # solo cache) or a cross-cluster federation when coic.num_clusters
+        # > 1; the engine's own prefill/decode path is the ladder's cloud
         # fall-through
         self.coic_cfg = cfg.coic
         self.semantic = None
@@ -255,16 +258,26 @@ class ServingEngine:
                 threshold=c.threshold, payload_dtype="int32",
                 policy=c.policy, lookup_impl=c.lookup_impl,
                 admission=c.admission, share=c.share)
-            self.sem_cluster = CooperativeEdgeCluster(
-                cluster_cfg, metrics=self.metrics, tracer=self.trace,
-                device=self.device)
-            self.sem_org = self.sem_cluster
-            self.semantic = self.sem_cluster.cache
+            self.sem_cluster, self.sem_fed = build_edge_org(
+                c, cluster_cfg, self.metrics, self.trace, self.device)
+            self.sem_org = self.sem_fed or self.sem_cluster
+            self.semantic = (self.sem_fed.clusters[0] if self.sem_fed
+                             else self.sem_cluster).cache
+            self._peer_on = c.share and c.num_nodes > 1
+            self._region_on = (self.sem_fed is not None and c.federate
+                               and c.num_clusters > 1)
             self.network = network or NetworkModel()
             self.router = TwoTierRouter(self.network, PayloadSizes(
                 input_bytes=cfg.max_len * 4,
                 descriptor_bytes=key_dim * 4,
                 result_bytes=cfg.max_new_tokens * 4))
+
+        # membership control plane (core/membership.py): requests whose
+        # target died reroute at schedule time and at retire; the
+        # federation tombstones digests and re-elects pins on detected
+        # deaths.  None == static grid.
+        self.membership = membership
+        wire_membership(membership, self.sem_cluster, self.sem_fed)
 
     # ------------------------------------------------------------------
     # registry-backed attribute API
@@ -450,6 +463,15 @@ class ServingEngine:
             return
         n_drain = 1 if self.cfg.scheduling == "sequential" else len(self.pending)
         batch = [self.pending.popleft() for _ in range(n_drain)]
+        if self.membership is not None:
+            # degraded routing against CURRENT liveness: a dead target
+            # remaps to the nearest alive (cluster, node), so the ladder
+            # only sees live targets
+            rerouted = []
+            for rid, prompt, node, clu in batch:
+                clu, node = self.membership.route(clu, node)
+                rerouted.append((rid, prompt, node, clu))
+            batch = rerouted
         prompts = [b[1] for b in batch]
         nodes = [b[2] for b in batch]
         clusters = [b[3] for b in batch]
@@ -475,12 +497,15 @@ class ServingEngine:
         tier, value = res.tier, res.value
         hit = tier != TIER_MISS
 
-        # local misses share ONE peer broadcast per cluster (none in a
-        # one-node cluster); local hits share the step's descriptor +
-        # lookup dispatch
+        # every local miss shares ONE peer broadcast per cluster; what
+        # escalates past the peer tier shares that home cluster's ONE
+        # metro->region digest message; local hits share the step's
+        # descriptor + lookup dispatch
         clus_np = np.asarray(clusters)
         lm = {k: int(((tier != TIER_LOCAL) & (clus_np == k)).sum())
               for k in set(clusters)}
+        esc = {k: int(((tier >= TIER_REMOTE) & (clus_np == k)).sum())
+               for k in set(clusters)} if self._region_on else {}
         for i, (rid, prompt, node, clu) in enumerate(batch):
             if hit[i]:
                 toks = np.asarray(value[i], np.int32)
@@ -488,9 +513,12 @@ class ServingEngine:
                 name = TIER_NAMES[t]
                 src = SOURCE_OF[name]
                 amort = {TIER_LOCAL: n, TIER_PEER: max(1, lm[clu]),
-                         TIER_REMOTE: 1}[t]
+                         TIER_REMOTE: max(1, esc.get(clu, 0))}[t]
                 lat = self.router.tier_latency(
-                    name, desc_ms / n, lookup_ms / n, batch=amort)
+                    name, desc_ms / n, lookup_ms / n, batch=amort,
+                    peer_net_ms=(self.router.peer_broadcast_ms(lm[clu])
+                                 if t == TIER_REMOTE and self._peer_on
+                                 else 0.0))
                 self._t_submit.pop(rid, None)
                 lat.deadline_ms = self._deadline.get(rid)
                 modeled_ms = lat.total_ms
@@ -621,6 +649,10 @@ class ServingEngine:
         self.kv.free_slot(slot)
         node = self._req_node.pop(a.req_id, 0)
         clu = self._req_cluster.pop(a.req_id, 0)
+        if self.membership is not None:
+            # the home shard may have died while this request computed:
+            # insert into the live reroute target instead
+            clu, node = self.membership.route(clu, node)
         prompt = self._prompts.pop(a.req_id, None)
         if self.semantic is not None and prompt is not None:
             # reuse the schedule-time descriptor: no extra extraction
@@ -723,4 +755,6 @@ class ServingEngine:
                                         self.semantic)
             out["ladder"] = ladder_block(self.sem_org)
             out["digest"] = digest_block(self.sem_fed)
+        if self.membership is not None:
+            out["membership"] = self.membership.stats()
         return out

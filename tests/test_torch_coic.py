@@ -56,3 +56,34 @@ def test_coic_engine_quickstart_matches_jax(cloud):
         assert ts[key] == js[key], key
     assert ts["hits"] == 8
 
+
+
+def test_coic_engine_serves_through_cluster_death():
+    """tests/test_chaos.py's CoICEngine run: requests aimed at a dead
+    cluster reroute and complete with the same payloads, in both
+    packages."""
+    from repro.core.membership import ClusterMembership as JMember
+    from repro_torch.core.membership import ClusterMembership as TMember
+    cfg, jm, jp, tm = twin("coic-paper")
+    kw = dict(capacity=16, threshold=0.98, descriptor="sketch",
+              descriptor_dim=128, payload_dim=4, num_nodes=1,
+              num_clusters=3, digest_size=4, digest_interval=1)
+    jmb, tmb = JMember(3, 1, timeout_s=60.0), TMember(3, 1, timeout_s=60.0)
+    je = JEngine(jm, jp, JCoIC(**kw), cloud_fn=j_recognition(jm, jp, 4),
+                 membership=jmb)
+    te = TEngine(tm, TCoIC(**kw), cloud_fn=t_recognition(tm, 4),
+                 membership=tmb, device="cpu")
+    toks = np.random.default_rng(21).integers(
+        1, cfg.vocab_size, size=(4, 12)).astype(np.int32)
+    for step in range(3):
+        if step == 1:
+            jmb.kill_cluster(1), tmb.kill_cluster(1)
+        jres = je.process_batch(toks, node_id=0, cluster_id=1)
+        tres = te.process_batch(toks, node_id=0, cluster_id=1)
+        assert [r.source for r in tres] == [r.source for r in jres]
+        for a, b in zip(tres, jres):
+            np.testing.assert_allclose(a.payload, b.payload, atol=1e-4)
+    js, ts = je.stats(), te.stats()
+    for key in ("hits", "misses", "ladder", "digest", "membership"):
+        assert ts[key] == js[key], key
+    assert ts["membership"]["cluster_kills"] == 1

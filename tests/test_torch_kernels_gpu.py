@@ -10,14 +10,22 @@ Tolerances: similarity scores within 1e-5 with identical indices, counts,
 ``last_used`` and ``freq``; paged attention 1e-5 in fp32 and 2e-2 in bf16
 (the plain version rounds logits and probabilities to bf16, the kernel
 keeps fp32), compared on rows that see at least one key; rows that see
-none are checked against the kernels' own conventions.
+none are checked against the kernels' own conventions.  The IVF-PQ probe
+sums its scores in another order than the plain version (a lookup table
+per subspace): scores within 1e-4; probed lists and indices equal except
+on rows whose plain scores lie closer than 1e-5, but not equal, where the
+order is decided.  Its inputs and that check are ``chip_smoke.py``'s, so
+the smoke run and these tests hold the kernel to one rule.
 """
 import pytest
 import torch
 
+from chip_smoke import ivf_inputs, ivf_pq_check
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.ivf_pq import ivf_pq_probe
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.similarity import (similarity_lookup,
+                                            similarity_topk,
                                             similarity_topk_batched,
                                             similarity_topk_touch)
 
@@ -60,6 +68,36 @@ def test_topk_batched(gen, N, Q, C, D, case, k):
     ci, cs = similarity_topk_batched(q, keys, valid, k)
     assert LAUNCHES["similarity_topk_batched"] == n0 + 1
     ri, rs = similarity_topk_batched(q, keys, valid, k, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(ci, ri)
+    torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("Q,C,D", [(1, 2048, 2048), (16, 2048, 2048),
+                                   (5, 37, 24)])
+def test_topk_single(gen, Q, C, D, case, k):
+    """K4, the single-matrix top-k (its own C entry and counter)."""
+    q, keys, valid = _sim(gen, 1, Q, C, D, case)
+    n0 = LAUNCHES["similarity_topk"]
+    ci, cs = similarity_topk(q[0], keys[0], valid[0], k)
+    assert LAUNCHES["similarity_topk"] == n0 + 1
+    ri, rs = similarity_topk(q[0], keys[0], valid[0], k, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(ci, ri)
+    torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_topk_batched_shared_keys(gen, k):
+    """Groups probing one shared key matrix under their own masks (the
+    digest board) equal the same probe over a per-group copy."""
+    q, keys, _ = _sim(gen, 3, 7, 40, 32, "duplicate")
+    valid = torch.rand(3, 40, generator=gen, device="cuda") < 0.7
+    ci, cs = similarity_topk_batched(q, keys[0], valid, k)
+    ri, rs = similarity_topk_batched(q, keys[0].expand(3, 40, 32), valid, k,
+                                     impl="ref")
     torch.cuda.synchronize()
     assert torch.equal(ci, ri)
     torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
@@ -150,3 +188,29 @@ def test_wrappers_reject_bad_inputs(gen):
     qs, keys, valid = _sim(gen, 1, 4, 40, 16, "random")
     with pytest.raises(ValueError):                # k above the kernel's 32
         similarity_topk_batched(qs, keys, valid, 33)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("Q,L,cap,S,D,n_probe", [
+    (8, 16, 24, 4, 64, 4), (5, 64, 40, 8, 256, 16), (3, 8, 8, 2, 16, 8)])
+def test_ivf_pq_probe(gen, Q, L, cap, S, D, n_probe, k):
+    """K6 against its plain version, by the smoke run's own check: query 0
+    is candidate-free (indices 0..k-1 at -1e30, as lax.top_k gives over the
+    masked row) and the last query's best two slots tie exactly (lower
+    index first)."""
+    args, twin = ivf_inputs(torch, gen, Q, L, cap, S, D, n_probe)
+    n0 = LAUNCHES["ivf_pq_probe"]
+    out = ivf_pq_probe(*args, k=k, n_probe=n_probe)
+    assert LAUNCHES["ivf_pq_probe"] == n0 + 1
+    torch.cuda.synchronize()
+    ivf_pq_check(torch, args, twin, k, n_probe, out)
+
+
+def test_ivf_pq_probe_refuses_oversized_shared_memory(gen):
+    """The C entry owns the shared-memory layout: 60000 coarse scores do not
+    fit a block, and the launch error is raised, nothing launched."""
+    args, _ = ivf_inputs(torch, gen, 2, 60000, 2, 2, 8, 2)
+    n0 = LAUNCHES["ivf_pq_probe"]
+    with pytest.raises(RuntimeError, match="ivf_pq_probe"):
+        ivf_pq_probe(*args, k=1, n_probe=2)
+    assert LAUNCHES["ivf_pq_probe"] == n0

@@ -66,16 +66,20 @@ def test_serving_engine_matches_jax(attn_impl):
 
 
 def test_unported_paths_raise():
+    from repro_torch.core.cluster import ClusterConfig, CooperativeEdgeCluster
+    from repro_torch.parallel.sharding import surviving_topk_lookup
     _, _, _, tm = twin("coic-paper")
     with pytest.raises(NotImplementedError):                 # slotted KV
         TServe(tm, TServing(), device="cpu")
-    with pytest.raises(NotImplementedError):                 # 4-node cluster
-        TServe(tm, TServing(kv_page=16, coic=TCoIC(num_nodes=4)),
-               device="cpu")
-    with pytest.raises(NotImplementedError):                 # federation
-        TServe(tm, TServing(kv_page=16, coic=TCoIC(num_clusters=2)),
-               device="cpu")
-
+    with pytest.raises(NotImplementedError, match="item 12"):   # a mesh
+        CooperativeEdgeCluster(ClusterConfig(num_nodes=2), mesh=object(),
+                               device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        surviving_topk_lookup(None, None, None, None, 1, mesh=object())
+    # several nodes and clusters are served now
+    TServe(tm, TServing(kv_page=16, coic=TCoIC(num_nodes=4)), device="cpu")
+    TServe(tm, TServing(kv_page=16, coic=TCoIC(num_clusters=2)),
+           device="cpu")
 
 
 def test_copy_on_write_matches_jax():
@@ -105,3 +109,56 @@ def test_copy_on_write_matches_jax():
     np.testing.assert_array_equal(tkv.refcount, jkv.refcount)
     assert tkv.stats.cow_copies == 1
     assert tkv.ensure_private(tpool, 1, 0) is tpool
+
+
+def _chaos_engine_run(make, mb, vocab, kills, K=3, N=2, PLEN=12, POOL=8):
+    """tests/test_chaos.py::_engine_run's stream (sketch descriptor, 3
+    clusters x 2 nodes, four rounds of six requests) on the paged pool:
+    {(round, scene, cluster, node): (source, tokens)}."""
+    eng = make(mb)
+    prompts = np.random.default_rng(11).integers(
+        1, vocab, size=(POOL, PLEN)).astype(np.int32)
+    rng = np.random.default_rng(12)
+    out = {}
+    for round_ in range(4):
+        for op, c in kills.get(round_, []):
+            (mb.kill_cluster if op == "kill" else mb.revive_cluster)(c)
+        rid_of = {}
+        for _ in range(6):
+            sid = int(rng.integers(POOL))
+            k, n = int(rng.integers(K)), int(rng.integers(N))
+            rid_of[eng.submit(prompts[sid], node_id=n, cluster_id=k)] = \
+                (round_, sid, k, n)
+        eng.run_until_drained()
+        for r in eng.results[len(out):]:
+            out[rid_of[r.req_id]] = (r.source,
+                                     tuple(int(t) for t in r.tokens))
+    return eng, out
+
+
+def test_federated_engine_under_churn_matches_jax():
+    """A cluster killed at round 1 and revived at round 3: tokens, source
+    per request, ``stats()["membership"]`` and the ladder block equal."""
+    from repro.core.membership import ClusterMembership as JMember
+    from repro_torch.core.membership import ClusterMembership as TMember
+    cfg, jm, jp, tm = twin("coic-paper")
+    kw = dict(max_batch=16, max_len=32, max_new_tokens=8, kv_page=8)
+    ckw = dict(capacity=16, threshold=0.98, descriptor="sketch",
+               descriptor_dim=128, num_nodes=2, num_clusters=3,
+               digest_size=4, digest_interval=1)
+    kills = {1: [("kill", 1)], 3: [("revive", 1)]}
+    je, jout = _chaos_engine_run(
+        lambda mb: JServe(jm, jp, JServing(coic=JCoIC(**ckw), **kw),
+                          membership=mb),
+        JMember(3, 2, timeout_s=60.0), cfg.vocab_size, kills)
+    te, tout = _chaos_engine_run(
+        lambda mb: TServe(tm, TServing(coic=TCoIC(**ckw), **kw),
+                          membership=mb, device="cpu"),
+        TMember(3, 2, timeout_s=60.0), cfg.vocab_size, kills)
+    assert tout == jout
+    js, ts = je.stats(), te.stats()
+    for key in STATS_KEYS + ("membership",):
+        assert ts[key] == js[key], key
+    assert ts["membership"]["cluster_kills"] == 1
+    assert ts["remote_hits"] > 0 and ts["peer_hits"] > 0
+    assert ts["max_step_ladder"] <= 2
