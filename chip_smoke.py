@@ -10,7 +10,8 @@ Phases, one line each; any failure raises and exits non-zero:
   2. kernels — each kernel against its plain PyTorch version at the main
                path's shapes (f32, and bf16 where it takes bf16), plus the
                kernels' own conventions on empty rows; times the kernel,
-               the plain version and a one-call PyTorch yardstick;
+               the plain version and a one-call PyTorch yardstick (K7 and
+               K8 at the swa path's shapes);
   3. serve   — the main path at full width: llama3.2-1b (random weights
                from a seed, bf16) behind the CoIC edge cache in
                ``ServingEngine`` (paged KV, paged attention), two waves of
@@ -26,11 +27,24 @@ Phases, one line each; any failure raises and exits non-zero:
                profiled fourth wave after a revive;
   5. k4      — the membership-aware pooled lookup (surviving_topk_lookup)
                over the federation's surviving shards, kernel vs plain;
-  6. e2e     — coic-paper in fp32 (TF32 off) through the kernel path and
-               the plain path: attn_impl "paged" vs "gather" on one
-               cluster, then lookup_impl "auto" vs "ref" on the federated
-               waves.  Decoded tokens, sources (and tier counts) must be
-               identical.
+  6. swa     — sliding-window serving at full width on the slotted KV
+               path: h2o-danube3-4b (random weights, bf16, window 4096)
+               behind the CoIC edge cache in ``ServingEngine(kv_page=0)``;
+               wave 1 is 8 prompts of 512 tokens, then 2 of 4608 (longer
+               than the window: the prefill rolls the ring, flash attention
+               skips the keys left of the window, decode wraps the slots),
+               wave 2 repeats them (edge hits) with 4 new; one flash-
+               attention launch (S = 4608) and one flash-decode launch
+               (4096 slots) of the path are held against their plain
+               versions on the same tensors; then a profiled wave;
+  7. e2e     — the kernel path against the plain path, in fp32 (TF32
+               off), decoded tokens and sources identical: coic-paper
+               attn_impl "paged" vs "gather" on one cluster, lookup_impl
+               "auto" vs "ref" on the federated waves, then the slotted
+               cache with the model's attention_impl "auto" (flash
+               attention and flash-decode kernels) vs "ref", for
+               coic-paper (chunked admission) and h2o-danube3-4b at full
+               width cut to 2 layers.
 
 Each path's kernel launch counters are zeroed just before it is driven
 and read just after: every kernel of the path must have run.
@@ -101,11 +115,14 @@ def main() -> None:
     k4_launches = phase_surviving(torch, model, fed_eng, fed_prompts)
     del fed_eng, model
     torch.cuda.empty_cache()
+    swa_launches, swa_requests, swa_on_path = phase_swa(torch)
     # each kernel's launches on the path that runs it: the single-cluster
     # serve path (K1-K3, K5), the federated path (K6), the surviving-shard
-    # lookup (K4)
+    # lookup (K4), the sliding-window slotted path (K7, K8)
     paths = {"similarity_topk": (k4_launches, None),
-             "ivf_pq_probe": (fed_launches, FED_REQUESTS)}
+             "ivf_pq_probe": (fed_launches, FED_REQUESTS),
+             "decode_attention": (swa_launches, swa_requests),
+             "flash_attention": (swa_launches, swa_requests)}
     for k in kernels:
         counts, n_req = paths.get(k["name"], (launches, serve["completed"]))
         k["launches"] = counts[k["name"]]
@@ -115,13 +132,22 @@ def main() -> None:
             k["launches_per_request"] = k["launches"] / n_req
         if k["name"] == "ivf_pq_probe":
             k["on_path"] = k6_path
+        if k["name"] in swa_on_path:
+            k["on_path"] = swa_on_path[k["name"]]
     for name in ("similarity_topk_batched", "paged_attention",
-                 "ivf_pq_probe"):
+                 "ivf_pq_probe", "flash_attention"):
         if fed_launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the federated "
                                  "path")
+    # the descriptor prefix of the single-cluster path runs K8 too
+    if launches["flash_attention"] <= 0:
+        raise AssertionError("flash_attention never launched on the serve "
+                             "path")
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "launches_serve"] = launches["flash_attention"]
     phase_e2e(torch)
     phase_federated_e2e(torch)
+    phase_slotted_e2e(torch)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -295,6 +321,8 @@ def phase_kernels(torch):
     kernels.append(check_paged(torch, g, timer, paged_attention))
     kernels.append(check_topk(torch, g, timer))
     kernels.append(check_ivf_pq(torch, g, timer))
+    kernels.append(check_decode(torch, g, timer))
+    kernels.append(check_flash(torch, g, timer))
     for k in kernels:
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms']:.4f}")
@@ -577,6 +605,163 @@ def check_ivf_pq(torch, g, timer):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "rows_excused": excused, "probed_lists": n_lists,
             "shape": "Q=256 L=1024 cap=984 S=8 D=2048 n_probe=16 k=1"}
+
+
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SWA = {"B": 8, "S": 4608, "Sk": 4096, "window": 4096, "H": 32, "K": 8,
+       "D": 120}                          # the swa path's attention shapes
+
+
+def _dt(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def flash_inputs(torch, g, B, S, H, K, D, dtype, dev="cuda"):
+    return [torch.randn(B, S, n, D, generator=g, device=dev).to(dtype)
+            for n in (H, K, K)]
+
+
+def flash_work(q, k, window):
+    """(bytes, flops) one flash-attention call must move and do: q, k, v
+    read once and the output written once; 4 * D flops per (query head,
+    visible key), the visible keys of position p being min(p + 1, window)
+    (p + 1 without a window)."""
+    B, S, H, D = q.shape
+    es = q.element_size()
+    seen = sum(min(p + 1, window) if window > 0 else p + 1
+               for p in range(S))
+    nbytes = (2 * q.numel() + 2 * k.numel()) * es
+    return nbytes, 4.0 * D * H * B * seen
+
+
+def flash_agree(torch, q, k, v, out, window):
+    """Max error of a flash-attention output against the plain version
+    on the same tensors, one batch row at a time (the plain version holds
+    (K, G, S, S) fp32 logits per row)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    err = 0.0
+    for b in range(q.shape[0]):
+        ref = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                              window=window, impl="ref")
+        err = max(err, float((out[b:b + 1].float() - ref.float()).abs()
+                             .max()))
+    tol = ATTN_TOL[_dt(q.dtype)]
+    assert err <= tol, ("flash_attention", tuple(q.shape), window, err)
+    return err
+
+
+def check_flash(torch, g, timer):
+    """K8: f32 and bf16, head_dim 64 and 120, GQA groups of 1 and 4, a
+    ragged S, no window and two windows; then timed at the swa path's
+    long-prompt row (S = 4608, window 4096, bf16)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 120):
+            for G in (1, 4):
+                for S, window in ((333, 0), (333, 100), (1000, 256)):
+                    q, k, v = flash_inputs(torch, g, 2, S, 8 * G, 8, D,
+                                           dtype)
+                    out = flash_attention(q, k, v, window=window)
+                    torch.cuda.synchronize()
+                    e = flash_agree(torch, q, k, v, out, window)
+                    err[_dt(dtype)] = max(err[_dt(dtype)], e)
+    S, W, H, K, D = SWA["S"], SWA["window"], SWA["H"], SWA["K"], SWA["D"]
+    q, k, v = flash_inputs(torch, g, 1, S, H, K, D, torch.bfloat16)
+    b_ms, b_by = bound(*flash_work(q, k, W), "bfloat16")
+    # yardstick: SDPA over the GQA-expanded view with the band as a mask
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    p = torch.arange(S, device="cuda")
+    band = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+            "launches": 0, "max_abs_err": err["bfloat16"],
+            "f32_max_abs_err": err["float32"],
+            "ms": timer(lambda: flash_attention(q, k, v, window=W)),
+            "plain_ms": timer(lambda: flash_attention(q, k, v, window=W,
+                                                      impl="ref")),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(lambda: sdpa(qh, kh, vh, attn_mask=band)),
+            "shape": f"B=1 S={S} H={H} K={K} D={D} window={W} bf16"}
+
+
+def decode_inputs(torch, g, B, S, H, K, D, dtype, lens, dev="cuda"):
+    q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, K, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def decode_work(q, k, kv_len):
+    """(bytes, flops) one flash-decode call must move and do: q read and
+    the output written once, the k and v of every valid slot once, kv_len;
+    4 * D flops per (query head, valid slot)."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    es = q.element_size()
+    valid = int(kv_len.clamp(max=k.shape[1]).sum())
+    nbytes = 2 * q.numel() * es + 2 * valid * K * D * es + 4 * B
+    return nbytes, 4.0 * D * H * valid
+
+
+def decode_agree(torch, q, k, v, kv_len, out):
+    from repro_torch.kernels.decode_attention import decode_attention
+    ref = decode_attention(q, k, v, kv_len, impl="ref")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = ATTN_TOL[_dt(q.dtype)]
+    assert err <= tol, ("decode_attention", tuple(k.shape), err)
+    return err
+
+
+def check_decode(torch, g, timer):
+    """K7: f32 and bf16, head_dim 64 and 120, GQA groups of 1 and 4,
+    kv_len 1, ragged and full over 1000 slots (four splits, the last
+    ragged), and the kernel's own convention for kv_len 0 (exact zeros);
+    then timed at the swa path's decode (B = 8, a full 4096-slot ring,
+    bf16)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 120):
+            for G in (1, 4):
+                for lens in ((1, 1, 1), (1, 517, 999), (1000,) * 3):
+                    q, k, v, ln = decode_inputs(torch, g, 3, 1000, 8 * G, 8,
+                                                D, dtype, lens)
+                    out = decode_attention(q, k, v, ln)
+                    torch.cuda.synchronize()
+                    e = decode_agree(torch, q, k, v, ln, out)
+                    err[_dt(dtype)] = max(err[_dt(dtype)], e)
+    q, k, v, ln = decode_inputs(torch, g, 2, 300, 32, 8, 120, torch.float32,
+                                (0, 300))
+    out = decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(out[0])) == 0, "kv_len 0 row"
+    B, S, H, K, D = SWA["B"], SWA["Sk"], SWA["H"], SWA["K"], SWA["D"]
+    q, k, v, ln = decode_inputs(torch, g, B, S, H, K, D, torch.bfloat16,
+                                (S,) * B)
+    b_ms, b_by = bound(*decode_work(q, k, ln), "bfloat16")
+    # yardstick: SDPA over the GQA-expanded cache, the valid slots as a mask
+    qh = q[:, :, None]
+    kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < ln[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
+            "launches": 0, "max_abs_err": err["bfloat16"],
+            "f32_max_abs_err": err["float32"],
+            "ms": timer(lambda: decode_attention(q, k, v, ln)),
+            "plain_ms": timer(lambda: decode_attention(q, k, v, ln,
+                                                       impl="ref")),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
+            "shape": f"B={B} Sk={S} H={H} K={K} D={D} kv_len={S} bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -991,7 +1176,191 @@ def phase_surviving(torch, model, eng, prompts):
 
 
 # ---------------------------------------------------------------------------
-# 6. kernel path vs plain path, end to end
+# 6. sliding-window serving on the slotted KV path
+# ---------------------------------------------------------------------------
+
+
+def _keep_first(store, fn, pred, clone=()):
+    """Wrap a kernel wrapper to keep the arguments (the positional ones in
+    ``clone`` copied: the cache is written in place later) and the output
+    of its first call for which ``pred(*args, **kw)`` holds."""
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        if not store and pred(*args, **kw):
+            store.append(([a.clone() if i in clone else a
+                           for i, a in enumerate(args)], kw, out))
+        return out
+    return call
+
+
+def swa_prompts(rng, vocab, heads, n, length):
+    import numpy as np
+    return [np.concatenate([heads[i % len(heads)],
+                            rng.integers(0, vocab, size=(length - 64,))
+                            .astype(np.int32)]) for i in range(n)]
+
+
+def phase_swa(torch):
+    """h2o-danube3-4b at its published widths (bf16, random weights from
+    seed 0) behind the CoIC edge cache on the slotted KV path.  Returns
+    the path's launch counts, its request count and, for K7 and K8, the
+    check and times of one launch of the path on its own tensors."""
+    import numpy as np
+
+    import repro_torch.kernels.decode_attention.ops as dec_ops
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    from repro_torch.configs import get_config
+    from repro_torch.core.coic import CoICConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingConfig, ServingEngine
+
+    cfg = get_config("h2o-danube3-4b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"swa: built {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, head_dim {cfg.head_dim}, window "
+          f"{cfg.sliding_window}, {cfg.dtype}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # prefill_chunk is set and ignored: a ring never chunks
+    eng = ServingEngine(model, ServingConfig(
+        max_batch=8, max_len=8192, max_new_tokens=16, kv_page=0,
+        prefill_chunk=128, coic=CoICConfig(capacity=512, threshold=0.98,
+                                           k_layers=2)), device="cuda")
+    Sk = eng.cache["blocks/0/k"].shape[2]
+    assert Sk == cfg.sliding_window, Sk
+    rng = np.random.default_rng(3)
+    V = cfg.vocab_size
+    heads = [rng.integers(0, V, size=(64,)).astype(np.int32)
+             for _ in range(2)]
+    long_len = SWA["S"]
+    wave1 = (swa_prompts(rng, V, heads, 8, 512)
+             + swa_prompts(rng, V, heads, 2, long_len))
+    wave2 = wave1 + swa_prompts(rng, V, heads, 4, 512)
+
+    # one K8 launch at the long prompts' length and one K7 launch over a
+    # full ring (a decode step with a long prompt active, read from the
+    # engine's host state: no device sync), as the path makes them
+    fa_seen, dec_seen = [], []
+    fa_fn, dec_fn = fa_ops.flash_attention_cuda, dec_ops.decode_attention_cuda
+    fa_ops.flash_attention_cuda = _keep_first(
+        fa_seen, fa_fn, lambda q, k, v, **kw: q.shape[1] == long_len)
+    dec_ops.decode_attention_cuda = _keep_first(
+        dec_seen, dec_fn,
+        lambda *args: any(len(eng._prompts.get(a.req_id, ())) >= Sk
+                          for a in eng.active.values()), clone=(1, 2))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # the swa path starts here
+    first = {}
+    for w, wave in enumerate((wave1, wave2), 1):
+        hits0, steps0, n0 = (eng.stats()["edge_hits"], eng.step_count,
+                             len(eng.results))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rid_of = {eng.submit(p): i for i, p in enumerate(wave)}
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        new = eng.results[n0:]
+        gen = sum(len(r.tokens) for r in new if r.source == "cloud")
+        steps = eng.step_count - steps0
+        hits = eng.stats()["edge_hits"] - hits0
+        print(f"swa: wave {w}: {len(new)} requests, {hits} edge hits, "
+              f"{gen} tokens generated in {dt:.3f} s ({gen / dt:.1f} tok/s), "
+              f"{steps} steps, mean step {dt / max(1, steps) * 1e3:.2f} ms",
+              flush=True)
+        for r in new:
+            i = rid_of[r.req_id]
+            if w == 1:
+                assert r.source == "cloud", ("wave 1", i, r.source)
+                first[i] = r.tokens.tolist()
+            elif i < len(wave1):
+                # a repeated prompt is an edge hit serving its own tokens
+                assert r.source == "edge", ("wave 2 repeat", i, r.source)
+                assert r.tokens.tolist() == first[i], ("phantom", i)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)              # ... and ends here
+    fa_ops.flash_attention_cuda = fa_fn
+    dec_ops.decode_attention_cuda = dec_fn
+    st = eng.stats()
+    n_req = st["completed"]
+    toks_out = np.concatenate([r.tokens for r in eng.results])
+    assert n_req == len(wave1) + len(wave2), n_req
+    assert st["max_step_ladder"] <= 2, st["max_step_ladder"]
+    assert st["dispatches"]["prefill_chunk"] == 0, st["dispatches"]
+    assert st["dispatches"]["prefill"] >= 3, st["dispatches"]
+    assert ((toks_out >= 0) & (toks_out < V)).all()
+    for name in ("flash_attention", "decode_attention"):
+        assert launches[name] > 0, (name, launches)
+    assert fa_seen and dec_seen, "no launch at the long prompts' shapes"
+    print(f"swa: {n_req} completed (edge {st['edge_hits']}, cloud "
+          f"{st['cloud']}), prefill tokens {st['prefill_tokens']}, "
+          f"max_step_ladder {st['max_step_ladder']}, dispatches "
+          f"{st['dispatches']}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"per request: flash_attention "
+          f"{launches['flash_attention'] / n_req:.2f}, decode_attention "
+          f"{launches['decode_attention'] / n_req:.2f}; launches "
+          f"{launches}", flush=True)
+    on_path = swa_on_path(torch, fa_seen[0], dec_seen[0], cfg.sliding_window)
+    profile_wave(torch, eng, [(p, 0, 0) for p in
+                              swa_prompts(rng, V, heads, 4, 512)
+                              + swa_prompts(rng, V, heads, 2, long_len)],
+                 label="swa: profile wave 3")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches, n_req, on_path
+
+
+def swa_on_path(torch, fa_call, dec_call, window):
+    """K8's first launch at S = 4608 (a layer of the long prompts' prefill)
+    and K7's first launch over a full ring (a decode step while the long
+    prompts decode), each held against its plain version on the same
+    tensors (bf16, 2e-2), then timed there: K8 on one row of the launch,
+    K7 on the whole launch."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    timer = Timer(torch)
+    (q, k, v), kw, out = fa_call
+    fa_err = flash_agree(torch, q, k, v, out, window)
+    q1, k1, v1 = q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous()
+    b_ms, b_by = bound(*flash_work(q1, k1, window), _dt(q.dtype))
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    fa = {"shape": f"B={B} S={S} H={H} K={K} D={D} window={window} "
+                   f"{_dt(q.dtype)} (timed on row 0)",
+          "max_abs_err": fa_err,
+          "ms": timer(lambda: flash_attention_cuda(q1, k1, v1, **kw)),
+          "plain_ms": timer(lambda: flash_attention_ref(q1, k1, v1,
+                                                        window=window)),
+          "bound_ms": b_ms, "bound_by": b_by}
+    (q, k, v, ln), _, out = dec_call
+    dec_err = decode_agree(torch, q, k, v, ln, out)
+    b_ms, b_by = bound(*decode_work(q, k, ln), _dt(q.dtype))
+    dec = {"shape": f"B={q.shape[0]} Sk={k.shape[1]} H={q.shape[1]} "
+                    f"K={k.shape[2]} D={q.shape[2]} kv_len "
+                    f"{ln.tolist()} {_dt(q.dtype)}",
+           "max_abs_err": dec_err,
+           "ms": timer(lambda: decode_attention_cuda(q, k, v, ln)),
+           "plain_ms": timer(lambda: decode_attention_ref(q, k, v, ln)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    for name, r in (("flash_attention", fa), ("decode_attention", dec)):
+        print(f"swa: {name} on the path ({r['shape']}): == plain (max err "
+              f"{r['max_abs_err']:.3g}); {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+              f"{r['bound_by']})", flush=True)
+    return {"flash_attention": fa, "decode_attention": dec}
+
+
+# ---------------------------------------------------------------------------
+# 7. kernel path vs plain path, end to end
 # ---------------------------------------------------------------------------
 
 
@@ -1049,6 +1418,71 @@ def phase_federated_e2e(torch):
     print(f"e2e: coic-paper fp32 federated, {sum(map(len, recs))} requests "
           f"(tier counts {tiers}): tokens, sources and tier counts identical "
           "through the kernels and the plain versions", flush=True)
+
+
+
+def phase_slotted_e2e(torch):
+    """The slotted cache (kv_page=0) with the model's attention_impl
+    "auto" (flash attention K8 for the descriptor prefix and prefill,
+    flash-decode K7 for decode) vs "ref" (their plain versions), fp32:
+    coic-paper with prefill_chunk 128 (prompts past 128 tokens go through
+    _advance_chunk) and h2o-danube3-4b at its full widths cut to 2 layers
+    (equal-length prefill runs).  Tokens and sources must be identical."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.coic import CoICConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingConfig, ServingEngine
+
+    for name, cut, lens in (("coic-paper", {}, None),
+                            ("h2o-danube3-4b", {"num_layers": 2},
+                             (128, 256))):
+        cfg = dataclasses.replace(get_config(name), dtype="float32", **cut)
+        out = {}
+        for impl in ("auto", "ref"):
+            model = build_model(
+                cfg, attention_impl=impl, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(0))
+            eng = ServingEngine(model, ServingConfig(
+                max_batch=8, max_len=512, max_new_tokens=16, kv_page=0,
+                prefill_chunk=128,
+                coic=CoICConfig(capacity=512, threshold=0.98)),
+                device="cuda")
+            rng = np.random.default_rng(0)
+            heads = [rng.integers(0, cfg.vocab_size, size=(64,))
+                     .astype(np.int32) for _ in range(2)]
+
+            def prompts(n):
+                if lens is None:
+                    return stream(rng, cfg.vocab_size, heads, n)
+                # equal-length halves: prefill runs of n / 2 rows
+                return [swa_prompts(rng, cfg.vocab_size, heads, 1,
+                                    lens[2 * i // n])[0] for i in range(n)]
+            wave1 = prompts(8)
+            reset_launches()
+            for wave in (wave1, wave1 + prompts(8)):
+                for p in wave:
+                    eng.submit(p)
+                eng.run_until_drained()
+            torch.cuda.synchronize()
+            n = dict(LAUNCHES)
+            if impl == "auto":
+                assert n["flash_attention"] > 0 and \
+                    n["decode_attention"] > 0, n
+            out[impl] = {r.req_id: (r.tokens.tolist(), r.source)
+                         for r in eng.results}
+            disp = eng.stats()["dispatches"]
+            del eng, model
+            torch.cuda.empty_cache()
+        assert out["auto"] == out["ref"], f"{name}: slotted paths differ"
+        n_hit = sum(src == "edge" for _, src in out["auto"].values())
+        print(f"e2e: {name} fp32 slotted ({cfg.num_layers} layers), "
+              f"{len(out['auto'])} requests ({n_hit} edge hits, dispatches "
+              f"{disp}): tokens and sources identical through flash "
+              "attention + flash-decode and their plain versions",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -232,7 +232,7 @@ _ALIASES = {
 
 # configurations this package carries a copy of; the rest of the zoo needs
 # the model families of ROADMAP.md Queue 1 item 13
-PORTED_CONFIGS = ("coic_paper", "llama32_1b")
+PORTED_CONFIGS = ("coic_paper", "llama32_1b", "h2o_danube3_4b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -38,6 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "similarity_topk": 0,
     "paged_attention": 0,
     "ivf_pq_probe": 0,
+    "decode_attention": 0,
+    "flash_attention": 0,
 }
 
 # source stem -> loaded library
@@ -88,7 +90,8 @@ def _finish_build(stem: str, job) -> None:
 
 
 def build_all(stems: Iterable[str] = ("similarity", "paged_attention",
-                                     "ivf_pq")) -> None:
+                                     "ivf_pq", "decode_attention",
+                                     "flash_attention")) -> None:
     """Compile every kernel source at once (one ``nvcc`` per source, all
     started together) and load the libraries."""
     jobs = {s: _start_build(s) for s in stems}

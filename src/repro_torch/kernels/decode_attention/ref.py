@@ -1,0 +1,31 @@
+"""Plain PyTorch flash-decode: one query token per row against a dense
+KV cache, the function the CUDA kernel computes.
+
+Mirrors ``repro/kernels/decode_attention/ref.py``: fp32 logits, slots at
+or past ``kv_len`` masked to -1e30, fp32 softmax and PV, cast to q's
+dtype.  A row with ``kv_len == 0`` averages V over every slot here, where
+the kernel gives exact zeros (the TPU kernel's ``l == 0 -> 1``): no decode
+row reaches it, since a step writes its own token before it attends.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, D) one new token per row; k/v: (B, S, K, D); kv_len: (B,)
+    number of valid leading slots per row.  Returns (B, H, D)."""
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / np.sqrt(D)
+    qg = q.reshape(B, K, G, D)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < kv_len.to(q.device)[:, None])                   # (B, S)
+    logits = torch.where(valid[:, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
+    return out.reshape(B, H, D).to(q.dtype)

@@ -1,9 +1,12 @@
 """Layer primitives of the dense decoder path, as plain functions on tensors.
 
 The port of the dense part of ``repro/models/layers.py``: RMSNorm,
-rotate-half RoPE, GQA attention (XLA reference path), the attention
-projections in the reference's einsum layouts (``wq`` (D, H, Dh), ``wo``
-(H, Dh, D)) and the gated-SiLU MLP.  ``init_leaf`` copies the reference's
+rotate-half RoPE, the attention mask (causal, sliding window, cache
+fill), GQA attention over a mask (the plain path of chunked prefill and
+the gathered paged view), causal attention of a full sequence through
+the flash-attention kernel (K8), the attention projections in the
+reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)) and the
+gated-SiLU MLP.  ``init_leaf`` copies the reference's
 initializer distribution for random weights at published widths.
 """
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def init_leaf(shape: tuple, init: str, dtype: torch.dtype,
@@ -59,9 +64,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """(..., Sq, Sk) causal mask from absolute positions."""
-    return k_pos[..., None, :] <= q_pos[..., :, None]
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                   causal: bool = True, window: int = 0,
+                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., Sq, Sk) boolean mask from absolute positions q_pos (..., Sq)
+    and k_pos (..., Sk).  ``window > 0`` adds the sliding-window band
+    (k_pos > q_pos - window); ``kv_len`` masks unwritten cache slots
+    (k_pos < kv_len)."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=q_pos.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    if kv_len is not None:
+        mask = mask & (kp < kv_len)
+    return mask
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,6 +101,18 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, Sq, H, D)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int = 0, impl: str = "auto") -> torch.Tensor:
+    """Causal GQA attention of a full sequence at positions 0..S-1 (with
+    the sliding-window band when ``window > 0``): the reference's
+    ``causal_attention`` as ``forward``, ``forward_hidden`` and ``prefill``
+    call it, through the flash-attention op (K8; ``impl`` auto | cuda |
+    ref).  q: (B, S, H, D); k/v: (B, S, K, D).  Softmax and PV in fp32,
+    where the reference's XLA path rounds the probabilities to v's dtype
+    first: equal in fp32, within bf16 rounding in bf16."""
+    return flash_attention(q, k, v, causal=True, window=window, impl=impl)
 
 
 def attention_qkv(cfg, blk, x: torch.Tensor, positions: torch.Tensor):

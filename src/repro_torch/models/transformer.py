@@ -3,19 +3,31 @@
 ``DecoderLM`` is an ``nn.Module`` holding one ``DecoderBlock`` per layer,
 with every weight in the reference's layout (``wq`` (D, H, Dh), ``wo``
 (H, Dh, D), ...), so ``models/convert.py`` moves weights across by name.
-This slice runs the dense attention + gated-SiLU path only; MoE, MLA, SSM,
-sliding-window, GELU-MLP and image/audio front ends raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 13).
+The port runs the dense attention + gated-SiLU path, with full or
+sliding-window attention; MoE, MLA, SSM, GELU-MLP and image/audio front
+ends raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 13).
+
+``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the attention of
+full sequences (``forward``, ``forward_hidden``, ``prefill``: the
+flash-attention kernel K8) and of slotted decode steps (the flash-decode
+kernel K7), or their plain versions; ``auto`` launches the kernels on
+CUDA tensors.  The reference reserves the switch (``attention_impl``) and
+runs XLA attention whatever its value.
 
 The KV cache is a flat dict of stacked leaves keyed like the reference
-(``blocks/0/k``: (layers, B, S, K, Dh) slotted, or (layers, P, page, K,
-Dh) as a paged pool).  Where JAX returned a new cache, ``prefill_chunk``
-and ``decode_step`` write the caller's leaves IN PLACE and hand the same
-dict back.  JAX drops out-of-bounds scatters (the INVALID page sink, pad
-tokens); PyTorch raises, so each dispatch computes its kept write targets
-once (one host sync) and writes only those.  JAX clamps out-of-bounds
-gathers; the gathered view (``paged_gather_view``) clamps INVALID entries
-to page P - 1 explicitly.
+(``blocks/0/k``: (layers, B, Sk, K, Dh) slotted, or (layers, P, page, K,
+Dh) as a paged pool).  A sliding-window model keeps a ring of Sk =
+min(window, max_len) slots, slot = position % Sk; ``prefill`` rotates
+the last Sk positions into that order and ``decode_step`` attends over
+the first min(length + 1, Sk) slots, which is exactly the reference's
+slot mask (valid slots are a prefix, and a ring no longer than the window
+makes the window clause hold by itself).  Where JAX returned a new cache,
+``prefill_chunk`` and ``decode_step`` write the caller's leaves IN PLACE
+and hand the same dict back.  JAX drops out-of-bounds scatters (the
+INVALID page sink, pad tokens); PyTorch raises, so each dispatch computes
+its kept write targets once (one host sync) and writes only those.  JAX
+clamps out-of-bounds gathers; the gathered view (``paged_gather_view``)
+clamps INVALID entries to page P - 1 explicitly.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_gather_view)
 from repro_torch.models import layers as L
@@ -59,7 +72,6 @@ def _check_dense(cfg: ModelConfig) -> None:
     unported = {"moe": cfg.moe is not None, "mla": cfg.mla is not None,
                 "ssm": cfg.ssm is not None or cfg.family in ("ssm", "hybrid"),
                 "encdec": cfg.encdec is not None or cfg.family == "encdec",
-                "sliding_window": cfg.sliding_window > 0,
                 "mlp_kind": cfg.mlp_kind != "gated_silu",
                 "image/audio front end": bool(cfg.num_image_patches
                                               or cfg.audio_frontend)}
@@ -67,7 +79,7 @@ def _check_dense(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP.md Queue "
-            "1 item 12, other model families); this slice runs the dense "
+            "1 item 13, other model families); the port runs the dense "
             "attention + gated-SiLU path")
 
 
@@ -93,10 +105,15 @@ class DecoderLM(nn.Module):
     """Dense decoder-only LM with the reference's forward / prefill /
     chunked-prefill / decode entry points."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 attention_impl: str = "auto"):
         super().__init__()
         _check_dense(cfg)
+        if attention_impl not in ("auto", "cuda", "ref"):
+            raise ValueError(f"attention_impl {attention_impl!r} not in "
+                             "auto | cuda | ref")
         self.cfg = cfg
+        self.attention_impl = attention_impl
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         dev, dt = self.device, self.dtype
@@ -154,8 +171,8 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
         q, k, v = L.attention_qkv(cfg, blk, h, positions)
-        attn = L.gqa_attention(q, k, v, L.attention_mask(positions,
-                                                         positions))
+        attn = L.causal_attention(q, k, v, window=cfg.sliding_window,
+                                  impl=self.attention_impl)
         x = x + L.attention_out(blk, attn)
         return self._mlp(blk, x), (k, v)
 
@@ -186,12 +203,17 @@ class DecoderLM(nn.Module):
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
+    def _cache_len(self, max_len: int) -> int:
+        """Slots per row: the window's ring for sliding-window attention."""
+        w = self.cfg.sliding_window
+        return min(w, max_len) if w > 0 else max_len
+
     def cache_specs(self, batch: int, max_len: int
                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
         """(shape, dtype) of the slotted decode cache leaves."""
         cfg = self.cfg
-        shp = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-               cfg.head_dim)
+        shp = (cfg.num_layers, batch, self._cache_len(max_len),
+               cfg.num_kv_heads, cfg.head_dim)
         return {"blocks/0/k": (shp, self.dtype),
                 "blocks/0/v": (shp, self.dtype)}
 
@@ -199,8 +221,11 @@ class DecoderLM(nn.Module):
                           ) -> Dict[str, Tuple[tuple, torch.dtype]]:
         """(shape, dtype) of the paged pool leaves ``(layers, num_pages,
         page_size, K, Dh)``; page ``num_pages`` is the out-of-bounds
-        sink."""
+        sink.  A sliding-window ring rotates by position and does not
+        page: those models raise, as in the reference."""
         cfg = self.cfg
+        if cfg.sliding_window > 0:
+            raise ValueError("paged KV needs linear caches (no SWA ring)")
         shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
                cfg.head_dim)
         return {"blocks/0/k": (shp, self.dtype),
@@ -214,18 +239,29 @@ class DecoderLM(nn.Module):
     def prefill(self, tokens: torch.Tensor, *, max_len: Optional[int] = None,
                 lengths: Optional[torch.Tensor] = None):
         """Run the full prompt and build a slotted cache of ``max_len``
-        positions.  Returns (last-position logits (B, V), cache, lengths);
+        positions (a ring of ``min(window, max_len)`` slots under a sliding
+        window).  Returns (last-position logits (B, V), cache, lengths);
         with ``lengths`` (a right-padded batch) logits come from each row's
-        true last token."""
+        true last token.  A ring rotates by the padded length, so the
+        serving engine prefills sliding-window models at exact lengths."""
         B, S = tokens.shape
         max_len = max_len or S
         cache = self.init_cache(B, max_len)
+        kc, vc = cache["blocks/0/k"], cache["blocks/0/v"]
+        Sk = kc.shape[2]
         x = self.embed(tokens)
         positions = self._positions(B, S)
         for i, blk in enumerate(self.layers):
             x, (k, v) = self._layer_fwd(blk, x, positions)
-            cache["blocks/0/k"][i, :, :S] = k
-            cache["blocks/0/v"][i, :, :S] = v
+            if Sk < S:
+                # ring: decode expects slot = position % Sk; the last Sk
+                # positions start at S - Sk, so rotate them into ring order
+                shift = (S - Sk) % Sk
+                kc[i] = torch.roll(k[:, -Sk:], shift, dims=1)
+                vc[i] = torch.roll(v[:, -Sk:], shift, dims=1)
+            else:
+                kc[i, :, :S] = k
+                vc[i, :, :S] = v
         rows = torch.arange(B, device=self.device)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32,
@@ -289,7 +325,8 @@ class DecoderLM(nn.Module):
         Sk = ck.shape[1]
         kpos = torch.arange(Sk, device=q.device)[None, :].expand(
             q.shape[0], Sk)
-        return L.gqa_attention(q, ck, cv, L.attention_mask(positions, kpos))
+        return L.gqa_attention(q, ck, cv,
+                               L.attention_mask(positions, kpos, causal=True))
 
     def _cached_layers(self, x, positions, lengths, cache, valid,
                        block_table, attn_impl):
@@ -328,7 +365,10 @@ class DecoderLM(nn.Module):
         layout; ``attn_impl`` is ``"gather"`` (dense view of the pool) or a
         ``kernels/paged_attention`` impl (``auto`` | ``cuda`` | ``ref``)
         reading pages in place.  Returns (last logits (B, V), cache — the
-        same dict, written in place —, new lengths)."""
+        same dict, written in place —, new lengths).  Sliding-window ring
+        caches raise, as in the reference."""
+        if self.cfg.sliding_window > 0:
+            raise NotImplementedError("chunked prefill with SWA ring caches")
         B, C = tokens.shape
         dev = self.device
         lengths = lengths.to(dev)
@@ -355,11 +395,38 @@ class DecoderLM(nn.Module):
         """One decode step.  tokens: (B,); lengths: (B,) cache fill per row
         (the position of the incoming token).  Returns (logits (B, V),
         cache — written in place —, lengths + 1).  With a block table,
-        INVALID rows (idle / mid-prefill) drop their write."""
+        INVALID rows (idle / mid-prefill) drop their write; without, the
+        slotted cache takes the token at slot ``lengths % Sk``."""
         dev = self.device
         lengths = lengths.to(dev)
         x = self.embed(tokens.to(dev))[:, None, :]
         positions = lengths.long()[:, None]
-        x = self._cached_layers(x, positions, lengths, cache, None,
-                                block_table, attn_impl)
+        if block_table is None:
+            x = self._slotted_decode_layers(x, positions, lengths, cache)
+        else:
+            x = self._cached_layers(x, positions, lengths, cache, None,
+                                    block_table, attn_impl)
         return self.unembed(x)[:, 0], cache, lengths + 1
+
+    def _slotted_decode_layers(self, x, positions, lengths, cache):
+        """Every layer of a slotted decode step: the new k/v goes to slot
+        ``lengths % Sk`` in place, then flash-decode (K7) attends over the
+        first ``min(lengths + 1, Sk)`` slots — the reference's slot mask
+        (positions ``lengths - ((lengths - slot) % Sk)`` in [0, lengths]
+        and, for a ring of Sk <= window slots, inside the window)."""
+        cfg = self.cfg
+        kc, vc = cache["blocks/0/k"], cache["blocks/0/v"]
+        Sk = kc.shape[2]
+        rows = torch.arange(x.shape[0], device=x.device)
+        slot = lengths.long() % Sk
+        kv_len = torch.clamp(lengths + 1, max=Sk).to(torch.int32)
+        for i, blk in enumerate(self.layers):
+            h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+            q, k, v = L.attention_qkv(cfg, blk, h, positions)
+            kc[i][rows, slot] = k[:, 0]                # in place
+            vc[i][rows, slot] = v[:, 0]
+            attn = decode_attention(q[:, 0], kc[i], vc[i], kv_len,
+                                    impl=self.attention_impl)
+            x = x + L.attention_out(blk, attn[:, None])
+            x = self._mlp(blk, x)
+        return x

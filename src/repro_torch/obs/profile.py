@@ -2,7 +2,8 @@
 
 The port's counterpart of ``repro/obs/profile.py``.  Each public kernel
 entry point (``similarity_topk_batched`` / ``similarity_topk_touch`` /
-``similarity_lookup`` in ``kernels/similarity/ops.py``, ``paged_attention``)
+``similarity_lookup`` in ``kernels/similarity/ops.py``, ``paged_attention``,
+``decode_attention``)
 calls ``record_op`` around its dispatch when a profiler is installed.  The
 record carries the measured ms of the call and the op's MODELED device
 bytes, from the same byte models as the reference, tagged by impl
@@ -99,6 +100,13 @@ def similarity_bytes(n_queries: int, n_keys: int, dim: int,
     return (n_queries * dim * 4.0            # query block read
             + n_keys * (row + 1.0)           # key rows + valid bytes
             + meta_rows * 2 * 4.0 * 2)       # last_used+freq, read+write
+
+
+def decode_attention_bytes(batch: int, seq: int, kv_heads: int,
+                           head_dim: int, dtype_bytes: int) -> float:
+    """Modeled k+v read of one dense flash-decode dispatch: every row
+    streams its full (S, K, D) k and v once."""
+    return float(2 * batch * seq * kv_heads * head_dim * dtype_bytes)
 
 
 def digest_probe_bytes(n_queries: int, num_clusters: int, digest_size: int,

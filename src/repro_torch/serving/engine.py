@@ -1,6 +1,5 @@
 """Batched serving engine with continuous batching and the CoIC edge cache
-in front of the model — the port of ``repro/serving/engine.py``, paged
-path.
+in front of the model — the port of ``repro/serving/engine.py``.
 
 Request lifecycle (one lookup ladder per engine STEP, not per request):
 
@@ -11,25 +10,34 @@ Request lifecycle (one lookup ladder per engine STEP, not per request):
                length-bucketed prompt pads and ONE grouped lookup
                (``route_flat``): a hit returns at once, charged the modeled
                network + probe latency; a miss joins the admission queue
-    admit    — EDF (or FIFO) order; every queued request with a free slot
-               maps its index-resident prompt-prefix pages (cross-user KV
-               sharing) and joins the chunking set; ONE batched
-               ``prefill_chunk`` launch advances every mid-prefill row
-    decode   — one ``decode_step`` over the whole batch; idle and
-               mid-prefill rows ride it with an all-INVALID table row
+    admit    — EDF (or FIFO) order.  Slotted cache (``kv_page == 0``):
+               queued requests with free slots prefill in ONE bucketed
+               (pow2 batch, pow2 length) ``prefill`` call per step — for a
+               sliding-window model only an equal-length front run, at its
+               exact length, since a ring rotates by the padded length —
+               and prompts longer than ``prefill_chunk`` reserve a slot and
+               trickle one ``prefill_chunk`` call per step (linear caches
+               only).  Paged cache (``kv_page > 0``): every queued request
+               with a free slot maps its index-resident prompt-prefix pages
+               (cross-user KV sharing) and joins the chunking set; ONE
+               batched ``prefill_chunk`` call advances every mid-prefill row
+    decode   — one ``decode_step`` over the whole batch; in the paged pool
+               idle and mid-prefill rows ride it with an all-INVALID table
+               row
     retire   — ``max_new_tokens`` / EOS -> result + insert of the
                schedule-time descriptor into the edge cache
 
 The model runs eagerly: where the reference jitted its prefill and decode
-with donated caches, the port calls the model, which writes the page pool
-in place; ``engine/dispatches/*`` still counts one per call, so the
-per-step ladder bound (``max_step_ladder <= 2``) stays checkable.
+with donated caches, the port calls the model, which writes the cache in
+place; ``engine/dispatches/*`` still counts one per call, so the per-step
+ladder bound (``max_step_ladder <= 2``) stays checkable.
 
-The port serves ``kv_page > 0`` (the paged pool) behind any CoIC org: a
-cooperative cluster of one or more nodes, or a cross-cluster federation,
-with an optional ``ClusterMembership`` control plane that reroutes
-requests aimed at dead targets.  The slotted cache (``kv_page == 0``)
-raises ``NotImplementedError`` (ROADMAP.md).
+The port serves both cache layouts behind any CoIC org: a cooperative
+cluster of one or more nodes, or a cross-cluster federation, with an
+optional ``ClusterMembership`` control plane that reroutes requests aimed
+at dead targets.  A sliding-window model needs the slotted cache: paged
+KV raises ``ValueError``, as in the reference, and ``prefill_chunk`` is
+ignored for it.
 """
 from __future__ import annotations
 
@@ -55,7 +63,8 @@ from repro_torch.device import resolve_device
 from repro_torch.obs.metrics import CounterDict, LazyCounterGroup, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.obs.views import digest_block, ladder_block, org_stats
-from repro_torch.serving.kv_cache import PagedKVCache, init_paged_pool
+from repro_torch.serving.kv_cache import (PagedKVCache, batch_cache_scatter,
+                                          init_batch_cache, init_paged_pool)
 
 # modeled-latency term names for the trace's request track, in the same
 # order LatencyBreakdown.total_ms sums them
@@ -90,8 +99,9 @@ class ServingConfig:
     scheduling: str = "batched"      # batched | sequential (one req/step)
     min_bucket: int = 8              # smallest length/width pad bucket
     queue_policy: str = "edf"        # edf | fifo
-    # chunked-prefill width; in the paged path 0 means one max_len-wide
-    # chunk per step
+    # chunked-prefill width (slotted path: prompts longer than this trickle
+    # one chunk per step, 0 == off); in the paged path 0 means one
+    # max_len-wide chunk per step
     prefill_chunk: int = 0
     # idle-step pacing: extra batched chunk advances per step when no
     # admission or decode slot is waiting (1 == one chunk per step)
@@ -137,12 +147,16 @@ class _Active:
 
 @dataclasses.dataclass
 class _Chunking:
-    """A prompt mid chunked prefill: chunks write the shared pool through
-    the slot's block table; ``filled`` starts at the prefix-shared token
-    count (mapped pages are prefill the row never runs)."""
+    """A prompt mid chunked prefill.  Slotted path: owns a reserved slot
+    and a B=1 prefill ``cache`` scattered into the batch cache once the
+    last chunk lands.  Paged path: ``cache`` is None (chunks write the
+    shared pool through the slot's block table) and ``filled`` starts at
+    the prefix-shared token count (mapped pages are prefill the row never
+    runs)."""
     req_id: int
     slot: int
     prompt: np.ndarray
+    cache: Optional[dict] = None     # slotted path's B=1 prefill cache
     filled: int = 0                  # prompt tokens consumed so far
     shared_pages: int = 0            # prefix pages mapped, not computed
 
@@ -173,10 +187,6 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked "
                              f"for {self.device}")
-        if cfg.kv_page == 0:
-            raise NotImplementedError(
-                "the slotted KV cache (kv_page == 0) is not ported yet "
-                "(ROADMAP.md Queue 1 item 9); set kv_page > 0")
         if cfg.attn_impl == "paged_interpret":
             raise NotImplementedError(
                 "attn_impl='paged_interpret' runs the Pallas interpreter; "
@@ -212,15 +222,29 @@ class ServingEngine:
         self._max_step_ladder = self.metrics.gauge("engine/max_step_ladder")
 
         B = cfg.max_batch
-        self.kv = PagedKVCache(model, B, cfg.max_len, cfg.kv_page,
-                               num_pages=cfg.kv_pages,
-                               prefix_share=cfg.prefix_share,
-                               prefix_mode=cfg.prefix_mode,
-                               metrics=self.metrics)
-        self.cache = init_paged_pool(model, self.kv.num_pages, cfg.kv_page)
-        # every paged admission is chunked; without an explicit chunk
-        # width one max_len-wide chunk covers any prompt in one step
-        self._chunk_width = cfg.prefill_chunk or cfg.max_len
+        # sliding-window ring caches rotate by the PADDED length, so those
+        # models only batch admissions of identical prompt length with no
+        # length padding, never chunk, and never page
+        self._exact_prefill = model.cfg.sliding_window > 0
+        self._paged = cfg.kv_page > 0
+        if self._paged and self._exact_prefill:
+            raise ValueError("kv_page > 0 needs linear attention caches "
+                             "(no sliding-window ring)")
+        self.kv: Optional[PagedKVCache] = None
+        if self._paged:
+            self.kv = PagedKVCache(model, B, cfg.max_len, cfg.kv_page,
+                                   num_pages=cfg.kv_pages,
+                                   prefix_share=cfg.prefix_share,
+                                   prefix_mode=cfg.prefix_mode,
+                                   metrics=self.metrics)
+            self.cache = init_paged_pool(model, self.kv.num_pages,
+                                         cfg.kv_page)
+            # every paged admission is chunked; without an explicit chunk
+            # width one max_len-wide chunk covers any prompt in one step
+            self._chunk_width = cfg.prefill_chunk or cfg.max_len
+        else:
+            self.cache = init_batch_cache(model, B, cfg.max_len)
+        self._can_chunk = cfg.prefill_chunk > 0 and not self._exact_prefill
         self._attn_impl = _ATTN_IMPL[cfg.attn_impl]
         self.lengths = torch.zeros((B,), dtype=torch.int32,
                                    device=self.device)
@@ -425,13 +449,16 @@ class ServingEngine:
                                 args={"deadline_miss": missed})
 
     # ------------------------------------------------------------------
-    def _pad_prompts(self, prompts: List[np.ndarray], fill: int):
+    def _pad_prompts(self, prompts: List[np.ndarray], fill: int,
+                     exact: bool = False):
         """Right-pad ``prompts`` with ``fill`` into a (pow2-B, pow2-S)
-        bucket.  Returns (tokens (Bb, Sb) int32, lengths (n,) int32)."""
+        bucket (``exact``: no length padding — sliding-window prefill).
+        Returns (tokens (Bb, Sb) int32, lengths (n,) int32)."""
         n = len(prompts)
         lens = np.array([len(p) for p in prompts], np.int32)
-        Sb = min(_pow2(int(lens.max()), self.cfg.min_bucket),
-                 self.cfg.max_len)
+        Sb = (int(lens.max()) if exact else
+              min(_pow2(int(lens.max()), self.cfg.min_bucket),
+                  self.cfg.max_len))
         Bb = _pow2(n)
         toks = np.full((Bb, Sb), fill, np.int32)
         for i, p in enumerate(prompts):
@@ -542,6 +569,149 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _admit(self) -> None:
+        """Deadline-ordered admission into the slotted cache: the queue is
+        sorted by the EDF key (FIFO under ``queue_policy="fifo"`` or when
+        nothing carries a deadline), then drained front to back — long
+        prompts peel off into the chunked path (one reserved slot, one
+        ``prefill_chunk``-token call per step), everything else joins ONE
+        bucketed batched ``prefill`` per step (sequential mode: one
+        request per step; sliding window: an equal-length front run).
+        The paged pool admits by ``_admit_paged`` instead."""
+        if self._paged:
+            self._admit_paged()
+            return
+        self._advance_chunks()
+        self._order_queue()
+        # sequential mode is the per-request one-shot baseline: chunking
+        # stays out of it, as in the reference
+        chunking_on = self._can_chunk and self.cfg.scheduling != "sequential"
+        while self.queue and self.free_slots:
+            if chunking_on and \
+                    len(self.queue[0][1]) > self.cfg.prefill_chunk:
+                rid, prompt = self.queue.popleft()
+                slot = self.free_slots.pop()
+                st = _Chunking(req_id=rid, slot=slot,
+                               prompt=prompt[:self.cfg.max_len],
+                               cache=init_batch_cache(self.model, 1,
+                                                      self.cfg.max_len))
+                self.chunking[rid] = st
+                self._advance_chunk(st)       # first chunk rides this step
+                continue
+            m = min(len(self.queue), len(self.free_slots))
+            if self.cfg.scheduling == "sequential":
+                m = 1
+            elif self._exact_prefill:
+                # equal-length front run only: no right-pad for SWA rings
+                L0 = len(self.queue[0][1])
+                run = 1
+                while run < m and len(self.queue[run][1]) == L0:
+                    run += 1
+                m = run
+            if chunking_on:
+                # only the front run of short prompts: a long prompt
+                # mid-queue must not inflate the shared pad bucket
+                run = 1
+                while run < m and \
+                        len(self.queue[run][1]) <= self.cfg.prefill_chunk:
+                    run += 1
+                m = run
+            self._prefill_run([self.queue.popleft() for _ in range(m)])
+
+    def _prefill_run(self, taken) -> None:
+        """ONE bucketed ``prefill`` call over the (rid, prompt) run
+        ``taken``; its rows are scattered into free slots and activated."""
+        m = len(taken)
+        toks, lens = self._pad_prompts([p for _, p in taken], fill=0,
+                                       exact=self._exact_prefill)
+        lens_pad = np.zeros((toks.shape[0],), np.int32)
+        lens_pad[:m] = lens
+        tr = self.trace
+        if tr.enabled:
+            tr.begin("prefill", cat="engine",
+                     args={"rows": m, "bucket": int(toks.shape[1])})
+        dev = self.device
+        logits, many_cache, _ = self.model.prefill(
+            torch.as_tensor(toks, device=dev), max_len=self.cfg.max_len,
+            lengths=torch.as_tensor(lens_pad, device=dev))
+        if tr.enabled:
+            tr.end()
+        self.dispatches["prefill"] += 1
+        self.prefill_tokens_computed += int(lens.sum())
+        slots = [self.free_slots.pop() for _ in range(m)]
+        batch_cache_scatter(self.cache,
+                            {k: v[:, :m] for k, v in many_cache.items()},
+                            slots)
+        del many_cache
+        nxt_t = torch.argmax(logits[:m], -1).to(torch.int32)
+        idx = torch.as_tensor(slots, device=dev)
+        self.lengths[idx] = torch.as_tensor(lens, device=dev)
+        self.tokens[idx] = nxt_t
+        nxt = nxt_t.cpu().numpy()
+        now = time.perf_counter()
+        for i, ((rid, prompt), slot) in enumerate(zip(taken, slots)):
+            self.row_active[slot] = True
+            self.active[slot] = _Active(req_id=rid, slot=slot,
+                                        generated=[int(nxt[i])],
+                                        t_admit=now)
+            self._prompts[rid] = prompt
+
+    def _advance_chunks(self) -> None:
+        """One ``prefill_chunk``-token call per in-flight long prompt per
+        step (slotted path).  With ``chunk_pacing > 1`` and an otherwise
+        idle engine (free slots, empty queue) each prompt may advance up to
+        ``chunk_pacing`` chunks this step, most urgent (EDF key) first."""
+        sts = sorted(self.chunking.values(),
+                     key=lambda st: self._queue_key((st.req_id,)))
+        for st in sts:
+            self._advance_chunk(st)
+        if self.cfg.chunk_pacing <= 1:
+            return
+        for st in sts:
+            for _ in range(self.cfg.chunk_pacing - 1):
+                if (st.req_id not in self.chunking or self.queue
+                        or not self.free_slots):
+                    break
+                self._advance_chunk(st)
+
+    def _advance_chunk(self, st: _Chunking) -> None:
+        """Feed the next chunk of ``st``'s prompt through
+        ``model.prefill_chunk`` at the static (1, prefill_chunk) shape (a
+        short tail is zero-padded, its true width passed as data); on the
+        last chunk scatter the B=1 cache into the reserved slot and
+        activate the row."""
+        C = self.cfg.prefill_chunk
+        n = min(C, len(st.prompt) - st.filled)
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :n] = st.prompt[st.filled:st.filled + n]
+        tr = self.trace
+        if tr.enabled:
+            tr.begin("prefill_chunk", cat="engine",
+                     args={"rid": st.req_id, "width": n})
+        dev = self.device
+        logits, st.cache, _ = self.model.prefill_chunk(
+            torch.as_tensor(chunk, device=dev), st.cache,
+            torch.tensor([st.filled], dtype=torch.int32, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev))
+        if tr.enabled:
+            tr.end()
+        self.dispatches["prefill_chunk"] += 1
+        self.prefill_tokens_computed += n
+        st.filled += n
+        if st.filled < len(st.prompt):
+            return
+        rid, slot = st.req_id, st.slot
+        del self.chunking[rid]
+        batch_cache_scatter(self.cache, st.cache, [slot])
+        nxt = int(torch.argmax(logits[0]))
+        self.lengths[slot] = len(st.prompt)
+        self.tokens[slot] = nxt
+        self.row_active[slot] = True
+        self.active[slot] = _Active(req_id=rid, slot=slot, generated=[nxt],
+                                    t_admit=time.perf_counter())
+        self._prompts[rid] = st.prompt
+
+    # ------------------------------------------------------------------
+    def _admit_paged(self) -> None:
         """Continuous-batching admission against the page pool: EDF-drain
         the queue into the chunking set (each admission probes the prefix
         index — mapped pages start ``filled`` past zero), then advance
@@ -557,15 +727,15 @@ class ServingEngine:
             self.chunking[rid] = _Chunking(
                 req_id=rid, slot=slot, prompt=prompt, filled=shared_tok,
                 shared_pages=shared_tok // self.cfg.kv_page)
-        self._advance_chunks()
+        self._advance_chunks_paged()
         for _ in range(self.cfg.chunk_pacing - 1):
             # idle pacing: extra batched advances only when no admission
             # or decode slot is waiting on us
             if not self.chunking or self.queue or not self.free_slots:
                 break
-            self._advance_chunks()
+            self._advance_chunks_paged()
 
-    def _advance_chunks(self) -> None:
+    def _advance_chunks_paged(self) -> None:
         """ONE (pow2 rows, chunk_width) ``prefill_chunk`` call over every
         mid-prefill row: per-row lengths, true widths and block-table rows;
         pad rows carry width 0 and an all-INVALID table, so their writes
@@ -644,9 +814,11 @@ class ServingEngine:
                        modeled_ms=modeled_ms, wall_s=wall_s, terms=terms)
         self.row_active[slot] = False
         self.free_slots.append(slot)
-        # refcount-- on every mapped page; pages at zero stay probe-able
-        # until recycled, so this request's prefix keeps serving
-        self.kv.free_slot(slot)
+        if self._paged:
+            # refcount-- on every mapped page; pages at zero stay
+            # probe-able until recycled, so this request's prefix keeps
+            # serving
+            self.kv.free_slot(slot)
         node = self._req_node.pop(a.req_id, 0)
         clu = self._req_cluster.pop(a.req_id, 0)
         if self.membership is not None:
@@ -702,13 +874,19 @@ class ServingEngine:
             tr.begin("decode", cat="engine",
                      args={"active": int(self.row_active.sum())})
         t0 = time.perf_counter()
-        # mid-prefill and free rows ride the batched decode with an
-        # all-INVALID table row: their junk write drops
-        bt = torch.as_tensor(self.kv.decode_table(self.row_active),
-                             device=self.device)
-        logits, self.cache, self.lengths = self.model.decode_step(
-            self.cache, self.tokens, self.lengths, block_table=bt,
-            attn_impl=self._attn_impl)
+        if self._paged:
+            # mid-prefill and free rows ride the batched decode with an
+            # all-INVALID table row: their junk write drops
+            bt = torch.as_tensor(self.kv.decode_table(self.row_active),
+                                 device=self.device)
+            logits, self.cache, self.lengths = self.model.decode_step(
+                self.cache, self.tokens, self.lengths, block_table=bt,
+                attn_impl=self._attn_impl)
+        else:
+            # free rows write junk into their own slots, which the next
+            # admission's scatter overwrites whole
+            logits, self.cache, self.lengths = self.model.decode_step(
+                self.cache, self.tokens, self.lengths)
         self.dispatches["decode"] += 1
         nxt_t = torch.argmax(logits, -1).to(torch.int32)
         nxt = nxt_t.cpu().numpy()
@@ -748,8 +926,9 @@ class ServingEngine:
             "deadline": self.deadline.as_dict(),
             "prefill_tokens": {"computed": self.prefill_tokens_computed,
                                "shared": self.prefill_tokens_shared},
-            "kv": self.kv.stats_dict(),
         }
+        if self._paged:
+            out["kv"] = self.kv.stats_dict()
         if self.sem_org is not None:
             out["semantic"] = org_stats(self.sem_fed, self.sem_cluster,
                                         self.semantic)

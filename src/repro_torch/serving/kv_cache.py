@@ -1,7 +1,10 @@
-"""Paged KV-cache management for continuous batching.
+"""KV-cache management for continuous batching.
 
-The port of the paged half of ``repro/serving/kv_cache.py``: every
-seq-indexed leaf is a physical page pool ``(layers, P, page, ...)``
+The port of ``repro/serving/kv_cache.py``.  The slotted batch cache
+(``kv_page == 0``) is one row of ``(layers, B, Sk, ...)`` leaves per slot,
+filled by ``batch_cache_insert`` / ``batch_cache_scatter`` (in place).
+In the paged layout every seq-indexed leaf is a physical page pool
+``(layers, P, page, ...)``
 shared by all slots through per-slot block tables (the vLLM layout).
 Pages are REFCOUNTED, and a per-offset prefix index (exact content hash,
 plus an optional n-gram-sketch approximate path) lets a newly admitted
@@ -10,8 +13,7 @@ recomputing its prefill.  See the reference for the safety invariants;
 they hold unchanged: sharing is page-granular and capped so every request
 computes at least its last prompt token, ``ensure_private`` is the
 copy-on-write guard, the index holds no references, and block-table entry
-``INVALID`` is the out-of-bounds sink.  All bookkeeping is numpy; the
-slotted layout (``kv_page == 0``) is ROADMAP.md Queue 1 item 9.
+``INVALID`` is the out-of-bounds sink.  All bookkeeping is numpy.
 """
 from __future__ import annotations
 
@@ -27,6 +29,55 @@ from repro_torch.core.hash_cache import content_hash
 from repro_torch.core.policies import EvictionPolicy
 from repro_torch.core.semantic_cache import SemanticCache
 from repro_torch.obs.metrics import MetricsRegistry
+
+
+def init_batch_cache(model, batch: int, max_len: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Zero slotted cache leaves ``(layers, batch, Sk, K, Dh)`` on the
+    model's device (Sk = max_len, or the sliding window's ring)."""
+    return {k: torch.zeros(shape, dtype=dtype, device=model.device)
+            for k, (shape, dtype) in model.cache_specs(batch,
+                                                       max_len).items()}
+
+
+def _write_rows(dst: torch.Tensor, src: torch.Tensor, slots) -> None:
+    """``dst[:, slots] = src`` in place, src zero-padded along its trailing
+    dims (a prefill cache may hold fewer positions than the batch cache:
+    the tail stays zero, masked out by per-row lengths)."""
+    idx = torch.as_tensor(slots, dtype=torch.long, device=dst.device)
+    if tuple(src.shape[2:]) != tuple(dst.shape[2:]):
+        dst[:, idx] = 0
+    region = (slice(None), idx) + tuple(slice(0, n) for n in src.shape[2:])
+    dst[region] = src.to(dst.dtype)
+
+
+def batch_cache_insert(batch_cache: Dict[str, torch.Tensor],
+                       one_cache: Dict[str, torch.Tensor], slot: int
+                       ) -> Dict[str, torch.Tensor]:
+    """Write a B=1 prefill cache into slot ``slot`` of the batch cache, in
+    place (the reference returns a new cache); returns ``batch_cache``."""
+    for k, dst in batch_cache.items():
+        _write_rows(dst, one_cache[k], [int(slot)])
+    return batch_cache
+
+
+def batch_cache_scatter(batch_cache: Dict[str, torch.Tensor],
+                        many_cache: Dict[str, torch.Tensor], slots
+                        ) -> Dict[str, torch.Tensor]:
+    """Scatter rows of a B=R bucketed prefill cache into ``slots`` (R,) of
+    the batch cache, in place (the reference returns a new cache); returns
+    ``batch_cache``.  Slots must be UNIQUE: the reference's scatter keeps
+    an arbitrary one of colliding rows, so duplicates raise, as there."""
+    slots_np = np.asarray(slots, np.int32)
+    uniq, counts = np.unique(slots_np, return_counts=True)
+    if (counts > 1).any():
+        raise ValueError("batch_cache_scatter: duplicate target slots "
+                         f"{uniq[counts > 1].tolist()} in {slots_np.tolist()}"
+                         " — colliding rows would silently overwrite each "
+                         "other")
+    for k, dst in batch_cache.items():
+        _write_rows(dst, many_cache[k], slots_np)
+    return batch_cache
 
 
 def init_paged_pool(model, num_pages: int, page_size: int

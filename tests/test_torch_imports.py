@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: no module of ``src/repro_torch``,
 nor ``chip_smoke.py``, imports JAX or anything of the JAX package
 (``repro``, ``repro.*``) or ``benchmarks``, checked on the AST; and the
-serving entry point imports in a process where ``jax`` cannot load."""
+serving entry point and the attention kernels' modules import in a
+process where ``jax`` cannot load."""
 import ast
 import pathlib
 import subprocess
@@ -37,7 +38,9 @@ def test_serving_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serving.engine, repro_torch.core.coic, "
-            "repro_torch.kernels; print('ok')")
+            "repro_torch.kernels, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.configs.h2o_danube3_4b; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),

@@ -10,7 +10,11 @@ Tolerances: similarity scores within 1e-5 with identical indices, counts,
 ``last_used`` and ``freq``; paged attention 1e-5 in fp32 and 2e-2 in bf16
 (the plain version rounds logits and probabilities to bf16, the kernel
 keeps fp32), compared on rows that see at least one key; rows that see
-none are checked against the kernels' own conventions.  The IVF-PQ probe
+none are checked against the kernels' own conventions.  Flash attention
+(K8) and flash-decode (K7) 1e-5 in fp32 and 2e-2 in bf16 (both versions
+keep fp32 softmax and PV; bf16 inputs, sums in another order, and the
+output rounded to bf16); a decode row with kv_len 0 is exact zeros in the
+kernel (the plain version averages V).  The IVF-PQ probe
 sums its scores in another order than the plain version (a lookup table
 per subspace): scores within 1e-4; probed lists and indices equal except
 on rows whose plain scores lie closer than 1e-5, but not equal, where the
@@ -22,6 +26,8 @@ import torch
 
 from chip_smoke import ivf_inputs, ivf_pq_check
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ivf_pq import ivf_pq_probe
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.similarity import (similarity_lookup,
@@ -175,6 +181,91 @@ def test_paged_attention(gen, C, G, D, dtype):
     torch.testing.assert_close(out[:4].float(), ref[:4].float(), atol=tol,
                                rtol=0)
     assert int(torch.count_nonzero(out[4])) == 0   # idle row: exact zeros
+
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _flash(gen, B, S, H, K, D, dtype):
+    return [torch.randn(B, S, n, D, generator=gen, device="cuda").to(dtype)
+            for n in (H, K, K)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 120, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S,window", [(1, 0), (77, 0), (77, 20),
+                                      (200, 64), (300, 0)])
+def test_flash_attention(gen, S, window, G, D, dtype):
+    """K8: ragged S (no multiple of the 64-row tile), the window band and
+    causal tile skipping, GQA groups of 1 and 4."""
+    q, k, v = _flash(gen, 2, S, 2 * G, 2, D, dtype)
+    n0 = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=window)
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    ref = flash_attention(q, k, v, window=window, impl="ref")
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 30])
+def test_flash_attention_non_causal(gen, window):
+    q, k, v = _flash(gen, 1, 150, 8, 2, 64, torch.float32)
+    out = flash_attention(q, k, v, causal=False, window=window)
+    ref = flash_attention(q, k, v, causal=False, window=window, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def _decode(gen, B, S, H, K, D, dtype, lens):
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, K, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 120, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("lens", [(1, 1, 1), (1, 300, 599), (600, 600, 600)])
+def test_decode_attention(gen, lens, G, D, dtype):
+    """K7 over a 600-slot cache (three splits, the last ragged): kv_len 1,
+    ragged and full."""
+    q, k, v, kv_len = _decode(gen, 3, 600, 2 * G, 2, D, dtype, lens)
+    n0 = LAUNCHES["decode_attention"]
+    out = decode_attention(q, k, v, kv_len)
+    assert LAUNCHES["decode_attention"] == n0 + 1
+    ref = decode_attention(q, k, v, kv_len, impl="ref")
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+def test_decode_attention_empty_row_is_zeros(gen):
+    q, k, v, kv_len = _decode(gen, 2, 100, 8, 2, 64, torch.float32, (0, 37))
+    out = decode_attention(q, k, v, kv_len)
+    ref = decode_attention(q, k, v, kv_len, impl="ref")
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(out[0])) == 0    # the kernel's convention
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
+
+
+def test_attention_wrappers_reject_bad_inputs(gen):
+    q, k, v = _flash(gen, 1, 8, 4, 2, 20, torch.float32)
+    with pytest.raises(ValueError):                # head_dim % 8 != 0
+        flash_attention(q, k, v)
+    q, k, v = _flash(gen, 1, 8, 4, 2, 136, torch.float32)
+    with pytest.raises(ValueError):                # head_dim above 128
+        flash_attention(q, k, v)
+    q, k, v, kv_len = _decode(gen, 1, 8, 34, 2, 64, torch.float32, (8,))
+    with pytest.raises(ValueError):                # 17 heads per KV head
+        decode_attention(q, k, v, kv_len)
+    q, k, v, kv_len = _decode(gen, 1, 8, 4, 2, 64, torch.float32, (8,))
+    with pytest.raises(TypeError):                 # mixed dtypes
+        decode_attention(q, k.bfloat16(), v, kv_len)
 
 
 def test_wrappers_reject_bad_inputs(gen):

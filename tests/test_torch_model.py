@@ -1,10 +1,11 @@
 """PyTorch port of the dense decoder vs the JAX ``DecoderLM`` (CPU, fp32).
 
 Both packages run the same weights (the converter moves them across) on
-the same seeded tokens: ``coic-paper`` (MHA, untied) and the reduced
-``llama3.2-1b`` (GQA, tied embeddings).  Logits and cache state within
-``atol=1e-4, rtol=1e-4``; greedy tokens exact.  Configs compare field for
-field with the reference's.
+the same seeded tokens: ``coic-paper`` (MHA, untied), the reduced
+``llama3.2-1b`` (GQA, tied embeddings) and, on the slotted path, the
+reduced ``h2o-danube3-4b`` (GQA, sliding window 16: a ring cache).
+Logits and cache state within ``atol=1e-4, rtol=1e-4``; greedy tokens
+exact.  Configs compare field for field with the reference's.
 """
 import dataclasses
 
@@ -23,6 +24,8 @@ from torch_twins import twin
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MODELS = [("coic-paper", False), ("llama3.2-1b", True)]
+# the slotted path also serves sliding-window models (paged KV refuses them)
+SLOTTED = MODELS + [("h2o-danube3-4b", True)]
 INVALID = 2 ** 30
 
 
@@ -30,7 +33,8 @@ def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
-@pytest.mark.parametrize("name", ["coic-paper", "llama3.2-1b"])
+@pytest.mark.parametrize("name", ["coic-paper", "llama3.2-1b",
+                                  "h2o-danube3-4b"])
 def test_configs_equal_reference(name):
     from repro.configs import reduced_config
     assert _fields(torch_get_config(name)) == _fields(get_config(name))
@@ -46,7 +50,7 @@ def test_unported_config_and_missing_gpu_raise():
             build_model(torch_get_config("coic-paper"))
 
 
-@pytest.mark.parametrize("name,reduced", MODELS)
+@pytest.mark.parametrize("name,reduced", SLOTTED)
 def test_converter_round_trips(name, reduced):
     _, _, jparams, tmodel = twin(name, reduced)
     flat = {k: np.asarray(v) for k, v in jparams.items()}
@@ -62,18 +66,21 @@ def test_converter_round_trips(name, reduced):
         assert torch.equal(getattr(o, a), getattr(o2, a2)), (n, l)
 
 
-@pytest.mark.parametrize("name,reduced", MODELS)
+@pytest.mark.parametrize("name,reduced", SLOTTED)
 def test_forward_and_hidden_match(name, reduced):
     cfg, jm, jp, tm = twin(name, reduced)
-    toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(2, 13)).astype(np.int32)
     jfwd = jax.jit(jm.forward)
     jhid = jax.jit(jm.forward_hidden, static_argnames=("num_layers",))
-    np.testing.assert_allclose(tm.forward(torch.from_numpy(toks)).numpy(),
-                               np.asarray(jfwd(jp, jnp.asarray(toks))), **TOL)
-    np.testing.assert_allclose(
-        tm.forward_hidden(torch.from_numpy(toks), num_layers=1).numpy(),
-        np.asarray(jhid(jp, jnp.asarray(toks), num_layers=1)), **TOL)
+    # 37 positions: past h2o's reduced window of 16
+    for S in (13, 37):
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(2, S)).astype(np.int32)
+        np.testing.assert_allclose(
+            tm.forward(torch.from_numpy(toks)).numpy(),
+            np.asarray(jfwd(jp, jnp.asarray(toks))), **TOL)
+        np.testing.assert_allclose(
+            tm.forward_hidden(torch.from_numpy(toks), num_layers=1).numpy(),
+            np.asarray(jhid(jp, jnp.asarray(toks), num_layers=1)), **TOL)
 
 
 def _close_cache(tc, jc):
@@ -124,7 +131,7 @@ def test_paged_chunk_and_decode_match(name, reduced, attn_impl):
         tok = np.asarray(jnp.argmax(jl, -1), np.int32)
 
 
-@pytest.mark.parametrize("name,reduced", MODELS)
+@pytest.mark.parametrize("name,reduced", SLOTTED)
 def test_dense_prefill_and_decode_match(name, reduced):
     """The slotted-cache prefill + decode that ``generation_cloud_fn``
     runs: logits, cache and greedy tokens."""
@@ -144,6 +151,95 @@ def test_dense_prefill_and_decode_match(name, reduced):
         tl, tc, tn = tm.decode_step(tc, torch.from_numpy(tok), tn)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         _close_cache(tc, jc)
+
+
+@pytest.mark.parametrize("S,max_len", [(40, 48), (12, 48), (16, 16),
+                                       (30, 12)])
+def test_swa_ring_prefill_matches_jax(S, max_len):
+    """The reduced h2o (window 16) prefills into a ring of min(16,
+    max_len) slots: the last Sk positions rotated so slot = position % Sk
+    (S 40 and 30: rotated; 12: no wrap; 16: exactly one ring), leaf for
+    leaf against the reference, with the row-true-length logits."""
+    cfg, jm, jp, tm = twin("h2o-danube3-4b", True)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, S)).astype(np.int32)
+    jl, jc, jn = jax.jit(jm.prefill, static_argnames=("max_len",))(
+        jp, jnp.asarray(toks), max_len=max_len)
+    tl, tc, tn = tm.prefill(torch.from_numpy(toks), max_len=max_len)
+    assert tc["blocks/0/k"].shape[2] == min(cfg.sliding_window, max_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    _close_cache(tc, jc)
+
+
+def _jax_slot_mask(lengths, Sk, window):
+    """The reference decode step's slot mask (``_sublayer_decode``):
+    slot j holds the position p with p % Sk == j and p <= length, valid
+    when 0 <= p <= length and, with a window, p > length - window."""
+    slots = jnp.arange(Sk)[None, :]
+    cur = jnp.asarray(lengths)[:, None]
+    kpos = cur - ((cur - slots) % Sk)
+    valid = (kpos >= 0) & (kpos <= cur)
+    if window > 0:
+        valid &= kpos > cur - window
+    return np.asarray(valid)
+
+
+@pytest.mark.parametrize("Sk,window", [(16, 16), (12, 16), (16, 0),
+                                       (5, 5)])
+def test_decode_kv_len_is_the_reference_slot_mask(Sk, window):
+    """The port's decode attends over the first min(length + 1, Sk) slots
+    (K7's ``kv_len``).  For every length up to four wraps of the ring,
+    that prefix is exactly the reference's slot mask, for a ring as long
+    as the window, one shorter (max_len < window) and a linear cache."""
+    lengths = np.arange(4 * Sk + 3)
+    kv_len = np.minimum(lengths + 1, Sk)
+    prefix = np.arange(Sk)[None, :] < kv_len[:, None]
+    np.testing.assert_array_equal(prefix, _jax_slot_mask(lengths, Sk,
+                                                         window))
+
+
+@pytest.mark.parametrize("S,max_len", [(24, 40), (9, 40), (9, 12)])
+def test_swa_decode_past_the_window_matches_jax(S, max_len):
+    """tests/test_decode_consistency.py::test_sliding_window_ring_buffer
+    on the twin: greedy decode steps that wrap the ring (S 24, window 16;
+    S 9 crosses slot 15 on the way; max_len 12 makes the ring shorter than
+    the window) give the reference's logits, caches and tokens.  Where the
+    ring is the whole window, the port's last-step logits also equal its
+    own ``forward`` over the whole sequence (a 12-slot ring decoded past
+    max_len sees 12 positions, as the reference's does, not 16)."""
+    cfg, jm, jp, tm = twin("h2o-danube3-4b", True)
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(2, S)).astype(np.int32)
+    jdecode = jax.jit(jm.decode_step)
+    jl, jc, jn = jax.jit(jm.prefill, static_argnames=("max_len",))(
+        jp, jnp.asarray(toks), max_len=max_len)
+    tl, tc, tn = tm.prefill(torch.from_numpy(toks), max_len=max_len)
+    seq = toks
+    for _ in range(10):
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        np.testing.assert_array_equal(tl.argmax(-1).numpy(), tok)
+        seq = np.concatenate([seq, tok[:, None]], axis=1)
+        jl, jc, jn = jdecode(jp, jc, jnp.asarray(tok), jn)
+        tl, tc, tn = tm.decode_step(tc, torch.from_numpy(tok), tn)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        _close_cache(tc, jc)
+    if tc["blocks/0/k"].shape[2] == cfg.sliding_window:
+        full = tm.forward(torch.from_numpy(seq))[:, -1]
+        np.testing.assert_allclose(tl.numpy(), full.numpy(), **TOL)
+
+
+def test_swa_refuses_chunks_pages_and_bad_impls():
+    _, _, _, tm = twin("h2o-danube3-4b", True)
+    cache = tm.init_cache(1, 32)
+    with pytest.raises(NotImplementedError):
+        tm.prefill_chunk(torch.zeros((1, 4), dtype=torch.int32), cache,
+                         torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tm.paged_cache_specs(8, 4)
+    with pytest.raises(ValueError):
+        build_model(tm.cfg, device="cpu", attention_impl="xla")
 
 
 def test_random_init_distribution():

@@ -6,7 +6,10 @@ waves through both serving engines (paged pool, ``kv_page=16,
 prefill_chunk=32``, CoIC front at ``capacity=64, threshold=0.98``), for
 both attention reads: decoded tokens and ``source`` per request,
 prefill-token counts, ``stats()["kv"]``, hit counts, dispatch counters
-and the ladder block must be equal.
+and the ladder block must be equal.  The slotted cache (``kv_page=0``)
+runs the same stream with bucketed and with chunked admission, and the
+reduced ``h2o-danube3-4b`` (a sliding-window ring) runs prompts longer
+than its window in equal-length runs; both with the same checks.
 """
 import numpy as np
 import pytest
@@ -34,7 +37,8 @@ def _waves(vocab, n1=7, n2=3):
 def _serve_both(attn_impl, waves=(7, 3), **extra):
     cfg, jm, jp, tm = twin("coic-paper")
     kw = dict(max_batch=4, max_len=96, max_new_tokens=6, kv_page=16,
-              prefill_chunk=32, attn_impl=attn_impl, **extra)
+              prefill_chunk=32, attn_impl=attn_impl)
+    kw.update(extra)
     je = JServe(jm, jp, JServing(coic=JCoIC(capacity=64, threshold=0.98),
                                  **kw))
     te = TServe(tm, TServing(coic=TCoIC(capacity=64, threshold=0.98), **kw),
@@ -65,18 +69,130 @@ def test_serving_engine_matches_jax(attn_impl):
     assert (te.kv.refcount == 0).all()
 
 
+def _compare(je, te, keys=STATS_KEYS):
+    jr = {r.req_id: r for r in je.results}
+    tr = {r.req_id: r for r in te.results}
+    assert sorted(jr) == sorted(tr)
+    for rid in jr:
+        np.testing.assert_array_equal(tr[rid].tokens, jr[rid].tokens)
+        assert tr[rid].source == jr[rid].source
+        assert tr[rid].decode_steps == jr[rid].decode_steps
+    js, ts = je.stats(), te.stats()
+    assert set(ts) == set(js)
+    for key in keys:
+        assert ts[key] == js[key], key
+    return ts
+
+
+@pytest.mark.parametrize("prefill_chunk,scheduling", [
+    (0, "batched"), (32, "batched"), (32, "sequential")])
+def test_slotted_engine_matches_jax(prefill_chunk, scheduling):
+    """coic-paper on the slotted cache: one bucketed ``prefill`` per step
+    (prefill_chunk 0), long prompts trickling through ``prefill_chunk``
+    (32), and the one-request-per-step baseline."""
+    kw = dict(kv_page=0, prefill_chunk=prefill_chunk, scheduling=scheduling)
+    je, te = _serve_both("gather", **kw)
+    ts = _compare(je, te, tuple(k for k in STATS_KEYS if k != "kv"))
+    assert "kv" not in ts
+    assert ts["edge_hits"] >= 4 and ts["max_step_ladder"] <= 2
+    assert ts["dispatches"]["prefill"] > 0
+    assert (ts["dispatches"]["prefill_chunk"] > 0) == (
+        prefill_chunk > 0 and scheduling == "batched")
+
+
+def _swa_waves(vocab):
+    """Equal-length runs around the reduced window of 16: lengths 20, 40
+    (longer than the window: the ring wraps at prefill), 9 and 16, in an
+    order that splits them into several runs."""
+    rng = np.random.default_rng(5)
+    wave1 = [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+             for n in (20, 20, 40, 40, 20, 9, 16, 16, 40)]
+    wave2 = wave1[:4] + [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+                         for n in (40, 20)]
+    return wave1, wave2
+
+
+def test_swa_engine_matches_jax():
+    """The reduced h2o-danube3-4b behind the CoIC front on the slotted
+    cache: exact-length prefill runs, decode past the window; the chunk
+    width is ignored for a ring, as in the reference."""
+    cfg, jm, jp, tm = twin("h2o-danube3-4b", True)
+    kw = dict(max_batch=4, max_len=64, max_new_tokens=8, prefill_chunk=16)
+    je = JServe(jm, jp, JServing(coic=JCoIC(capacity=64, threshold=0.98),
+                                 **kw))
+    te = TServe(tm, TServing(coic=TCoIC(capacity=64, threshold=0.98), **kw),
+                device="cpu")
+    for wave in _swa_waves(cfg.vocab_size):
+        for p in wave:
+            assert je.submit(p) == te.submit(p)
+        je.run_until_drained()
+        te.run_until_drained()
+    ts = _compare(je, te, tuple(k for k in STATS_KEYS if k != "kv"))
+    assert ts["dispatches"]["prefill_chunk"] == 0
+    assert ts["dispatches"]["prefill"] >= 4        # runs of equal length
+    assert ts["edge_hits"] >= 4 and ts["max_step_ladder"] <= 2
+
+
+def test_swa_engine_refuses_paged_kv():
+    _, jm, jp, tm = twin("h2o-danube3-4b", True)
+    with pytest.raises(ValueError):
+        JServe(jm, jp, JServing(kv_page=16))
+    with pytest.raises(ValueError):
+        TServe(tm, TServing(kv_page=16), device="cpu")
+
+
+def test_batch_cache_insert_and_scatter_match_jax():
+    """The slotted cache's writers, in place in the port: a B=1 cache and
+    a bucket of rows, both shorter than the batch cache (the tail zeroed),
+    land leaf for leaf where the reference puts them; duplicate target
+    slots raise in both."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.serving import kv_cache as J
+    from repro_torch.serving import kv_cache as T
+    _, jm, _, tm = twin("coic-paper")
+    rng = np.random.default_rng(6)
+    one = {k: rng.normal(size=(s[0], 1, 5) + s[3:]).astype(np.float32)
+           for k, (s, _) in tm.cache_specs(1, 9).items()}
+    many = {k: rng.normal(size=(s[0], 3, 7) + s[3:]).astype(np.float32)
+            for k, (s, _) in tm.cache_specs(3, 9).items()}
+    jc = J.init_batch_cache(jm, 4, 9)
+    tc = T.init_batch_cache(tm, 4, 9)
+    tc = {k: v + 1.0 for k, v in tc.items()}       # stale rows to overwrite
+    jc = {k: v + 1.0 for k, v in jc.items()}
+    jc = J.batch_cache_insert(jc, {k: jnp.asarray(v) for k, v in one.items()},
+                              2)
+    assert T.batch_cache_insert(tc, {k: torch.from_numpy(v)
+                                     for k, v in one.items()}, 2) is tc
+    jc = J.batch_cache_scatter(jc, {k: jnp.asarray(v)
+                                    for k, v in many.items()},
+                               jnp.asarray([3, 0, 1], jnp.int32))
+    T.batch_cache_scatter(tc, {k: torch.from_numpy(v)
+                               for k, v in many.items()}, [3, 0, 1])
+    for k in jc:
+        np.testing.assert_array_equal(tc[k].numpy(), np.asarray(jc[k]))
+    for mod, cache, conv in ((J, jc, jnp.asarray), (T, tc, torch.from_numpy)):
+        with pytest.raises(ValueError):
+            mod.batch_cache_scatter(cache, {k: conv(v)
+                                            for k, v in many.items()},
+                                    np.array([1, 0, 1], np.int32))
+
+
 def test_unported_paths_raise():
     from repro_torch.core.cluster import ClusterConfig, CooperativeEdgeCluster
     from repro_torch.parallel.sharding import surviving_topk_lookup
     _, _, _, tm = twin("coic-paper")
-    with pytest.raises(NotImplementedError):                 # slotted KV
-        TServe(tm, TServing(), device="cpu")
+    with pytest.raises(NotImplementedError):         # the Pallas interpreter
+        TServe(tm, TServing(kv_page=16, attn_impl="paged_interpret"),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):   # a mesh
         CooperativeEdgeCluster(ClusterConfig(num_nodes=2), mesh=object(),
                                device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         surviving_topk_lookup(None, None, None, None, 1, mesh=object())
-    # several nodes and clusters are served now
+    # the slotted cache, several nodes and clusters are served now
+    TServe(tm, TServing(), device="cpu")
     TServe(tm, TServing(kv_page=16, coic=TCoIC(num_nodes=4)), device="cpu")
     TServe(tm, TServing(kv_page=16, coic=TCoIC(num_clusters=2)),
            device="cpu")
