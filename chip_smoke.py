@@ -11,7 +11,11 @@ Phases, one line each; any failure raises and exits non-zero:
                path's shapes (f32, and bf16 where it takes bf16), plus the
                kernels' own conventions on empty rows; times the kernel,
                the plain version and a one-call PyTorch yardstick (K7 and
-               K8 at the swa path's shapes);
+               K8 at the swa path's shapes), and beside each kernel's and
+               yardstick's time (``ms``, called eagerly) the device time
+               of one call and the host time of issuing it; K8's bf16
+               route beside its FMA route, also on a V whose outputs lie
+               in [4, 8);
   3. serve   — the main path at full width: llama3.2-1b (random weights
                from a seed, bf16) behind the CoIC edge cache in
                ``ServingEngine`` (paged KV, paged attention), two waves of
@@ -36,7 +40,8 @@ Phases, one line each; any failure raises and exits non-zero:
                wave 2 repeats them (edge hits) with 4 new; one flash-
                attention launch (S = 4608) and one flash-decode launch
                (4096 slots) of the path are held against their plain
-               versions on the same tensors; then a profiled wave;
+               versions on the same tensors and timed beside their SDPA
+               yardsticks; then a profiled wave;
   7. e2e     — the kernel path against the plain path, in fp32 (TF32
                off), decoded tokens and sources identical: coic-paper
                attn_impl "paged" vs "gather" on one cluster, lookup_impl
@@ -67,6 +72,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 ITERS = 50
+SPIN_CYCLES = 2_000_000                          # ~1 ms at the H100's clock
 
 
 def fail(msg: str) -> None:
@@ -163,14 +169,21 @@ def main() -> None:
 class Timer:
     """Mean ms of one call over ``ITERS`` calls, each timed with CUDA
     events after a write of 64 MiB that evicts the 50 MB L2 (the main path
-    finds the cache keys and KV pages cold between steps)."""
+    finds the cache keys and KV pages cold between steps).  A call is
+    issued eagerly, as a caller issues it, so a call whose kernels take
+    less time than the host takes to issue it reads the host's time.
+
+    ``device`` holds the device in a ~1 ms spin after the flush, so the
+    host has issued the whole call before the start event runs: the events
+    read the call's device time alone.  ``host`` is the host's time to
+    issue one call, its wall time when it synchronises."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(16 * 2 ** 20, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, spin: bool = False) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
@@ -178,11 +191,51 @@ class Timer:
                torch.cuda.Event(enable_timing=True)) for _ in range(ITERS)]
         for start, end in ev:
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
             start.record()
             fn()
             end.record()
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in ev) / ITERS
+
+    def device(self, fn) -> float:
+        return self(fn, spin=True)
+
+    def host(self, fn) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / ITERS
+        torch.cuda.synchronize()
+        return ms
+
+
+def times(timer, fn, lib=None) -> dict:
+    """A kernel's and its one-call yardstick's times: ``ms`` and
+    ``library_ms`` eager, ``device_ms`` and ``library_device_ms`` the
+    device's, ``host_ms`` and ``library_host_ms`` the host's to issue the
+    call (``Timer``).  No yardstick: the library keys are None."""
+    out = {"ms": timer(fn), "device_ms": timer.device(fn),
+           "host_ms": timer.host(fn)}
+    for key, t in (("library_ms", timer), ("library_device_ms",
+                                           timer.device),
+                   ("library_host_ms", timer.host)):
+        out[key] = None if lib is None else t(lib)
+    return out
+
+
+def times_text(r) -> str:
+    """``times`` of a row as printed: eager, then device and host."""
+    lib = ("none" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f}, "
+           f"host {r['library_host_ms']:.4f})")
+    return (f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}, host "
+            f"{r['host_ms']:.4f}; plain {r['plain_ms']:.4f}; library {lib}; "
+            f"bound {r['bound_ms']:.5f} by {r['bound_by']})")
 
 
 def _unit(x):
@@ -287,6 +340,7 @@ def phase_kernels(torch):
     in_bytes = Q * D * 4 + C * D * 4 + C
     flops = 2.0 * Q * C * D
     kt = keys[0].t().contiguous()
+    q0, k0, v0 = q[0], keys[0], valid[0]      # 2-D views, made once
     kernels = []
     src = "src/repro_torch/csrc/similarity.cu"
     tpu = "src/repro/kernels/similarity/kernel.py"
@@ -296,14 +350,14 @@ def phase_kernels(torch):
          lambda: torch.topk(torch.bmm(q, keys.transpose(1, 2)), 1),
          in_bytes + Q * 8),
         ("similarity_lookup", f"{tpu}:328",
-         lambda impl: similarity_lookup(q[0], keys[0], valid[0], impl=impl),
-         lambda: torch.topk(q[0] @ kt, 1),
+         lambda impl: similarity_lookup(q0, k0, v0, impl=impl),
+         lambda: torch.topk(q0 @ kt, 1),
          in_bytes + Q * 8),
         ("similarity_topk_touch", f"{tpu}:270",
-         lambda impl: similarity_topk_touch(q[0], keys[0], valid[0], 1, lu,
-                                            fr, clk, threshold=0.98, mask=m,
+         lambda impl: similarity_topk_touch(q0, k0, v0, 1, lu, fr, clk,
+                                            threshold=0.98, mask=m,
                                             impl=impl),
-         lambda: torch.topk(q[0] @ kt, 1),
+         lambda: torch.topk(q0 @ kt, 1),
          in_bytes + Q * 9 + C * 4 * 2 * 2),
     ]
     for name, replaces, fn, lib, nbytes in rows:
@@ -312,10 +366,9 @@ def phase_kernels(torch):
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0,
             "max_abs_err": err[name],
-            "ms": timer(lambda: fn("auto")),
+            **times(timer, lambda: fn("auto"), lib),
             "plain_ms": timer(lambda: fn("ref")),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lib),
             "shape": "N=1 Q=16 C=512 D=2048 k=1 fp32"})
 
     kernels.append(check_paged(torch, g, timer, paged_attention))
@@ -324,11 +377,8 @@ def phase_kernels(torch):
     kernels.append(check_decode(torch, g, timer))
     kernels.append(check_flash(torch, g, timer))
     for k in kernels:
-        lib = ("none" if k["library_ms"] is None
-               else f"{k['library_ms']:.4f}")
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, "
-              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
-              f"{lib}, bound {k['bound_ms']:.5f} by {k['bound_by']})",
+              f"{times_text(k)}",
               flush=True)
     return kernels
 
@@ -413,20 +463,19 @@ def check_paged(torch, g, timer, paged_attention):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         entries.append({
             "C": C, "max_abs_err": e,
-            "ms": timer(lambda: paged_attention(q, kp, vp, bt, ln)),
+            **times(timer, lambda: paged_attention(q, kp, vp, bt, ln),
+                    lambda: sdpa(qh, kv[0], kv[1], attn_mask=mask)),
             "plain_ms": timer(lambda: paged_attention(q, kp, vp, bt, ln,
                                                       impl="ref")),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lambda: sdpa(qh, kv[0], kv[1],
-                                             attn_mask=mask)),
             "shape": f"B=8 C={C} H=32 K=8 D=64 page=16 n_pages=32 bf16"})
     decode, prefill = entries
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
             "launches": 0, "max_abs_err": worst,
-            **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms", "shape")},
+            **{k: v for k, v in decode.items() if k not in ("C",
+                                                             "max_abs_err")},
             "f32_max_abs_err": max(shapes[(torch.float32, C)][-1]
                                    for C in (1, 128)),
             "prefill": prefill}
@@ -463,11 +512,11 @@ def check_topk(torch, g, timer):
             "source": "src/repro_torch/csrc/similarity.cu",
             "replaces": "src/repro/kernels/similarity/kernel.py:139",
             "launches": 0, "max_abs_err": err,
-            "ms": timer(lambda: similarity_topk(q, keys, valid, 1)),
+            **times(timer, lambda: similarity_topk(q, keys, valid, 1),
+                    lambda: torch.topk(q @ kt, 1)),
             "plain_ms": timer(lambda: similarity_topk(q, keys, valid, 1,
                                                       impl="ref")),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lambda: torch.topk(q @ kt, 1)),
             "shape": "Q=16 C=2048 (4x512) D=2048 k=1 fp32"}
 
 
@@ -598,11 +647,12 @@ def check_ivf_pq(torch, g, timer):
             "source": "src/repro_torch/csrc/ivf_pq.cu",
             "replaces": "src/repro/kernels/ivf_pq/kernel.py:113",
             "launches": 0, "max_abs_err": err,
-            "ms": timer(lambda: ivf_pq_probe(*args, k=1, n_probe=n_probe)),
+            **times(timer, lambda: ivf_pq_probe(*args, k=1,
+                                                n_probe=n_probe)),
             "plain_ms": timer(lambda: ivf_pq_probe(*args, k=1,
                                                    n_probe=n_probe,
                                                    impl="ref")),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
             "rows_excused": excused, "probed_lists": n_lists,
             "shape": "Q=256 L=1024 cap=984 S=8 D=2048 n_probe=16 k=1"}
 
@@ -650,10 +700,42 @@ def flash_agree(torch, q, k, v, out, window):
     return err
 
 
+def sdpa_band(torch, q, k, v, window):
+    """K8's yardstick: one SDPA call over the GQA-expanded view of q (B, S,
+    H, D), k/v (B, S, K, D), the causal band of ``window`` keys as a
+    boolean mask."""
+    S, H, K = q.shape[1], q.shape[2], k.shape[2]
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    p = torch.arange(S, device=q.device)
+    band = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, kh, vh, attn_mask=band)
+
+
+def sdpa_slots(torch, q, k, v, kv_len):
+    """K7's yardstick: one SDPA call over the GQA-expanded cache (q (B, H,
+    D), k/v (B, S, K, D)), the valid slots (< kv_len) as a boolean mask."""
+    S, H, K = k.shape[1], q.shape[1], k.shape[2]
+    kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q[:, :, None], kh, vh, attn_mask=mask)
+
+
 def check_flash(torch, g, timer):
     """K8: f32 and bf16, head_dim 64 and 120, GQA groups of 1 and 4, a
     ragged S, no window and two windows; then timed at the swa path's
-    long-prompt row (S = 4608, window 4096, bf16)."""
+    long-prompt row (S = 4608, window 4096, bf16), beside the FMA route
+    (the fp32 kernel) on the same inputs widened to fp32, its output
+    rounded to bf16: the computation the bf16 route made before it moved
+    to the tensor cores.  Both routes also run on a V drawn from [4, 8),
+    whose outputs lie where one bf16 step (2^-5) exceeds the 2e-2
+    tolerance: there each output must lie within one bf16 step of the
+    plain version's."""
     from repro_torch.kernels.flash_attention import flash_attention
     err = {"float32": 0.0, "bfloat16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -669,24 +751,57 @@ def check_flash(torch, g, timer):
     S, W, H, K, D = SWA["S"], SWA["window"], SWA["H"], SWA["K"], SWA["D"]
     q, k, v = flash_inputs(torch, g, 1, S, H, K, D, torch.bfloat16)
     b_ms, b_by = bound(*flash_work(q, k, W), "bfloat16")
-    # yardstick: SDPA over the GQA-expanded view with the band as a mask
-    qh = q.transpose(1, 2).contiguous()
-    kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
-              .contiguous() for x in (k, v))
-    p = torch.arange(S, device="cuda")
-    band = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - W)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-            "launches": 0, "max_abs_err": err["bfloat16"],
-            "f32_max_abs_err": err["float32"],
-            "ms": timer(lambda: flash_attention(q, k, v, window=W)),
-            "plain_ms": timer(lambda: flash_attention(q, k, v, window=W,
-                                                      impl="ref")),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lambda: sdpa(qh, kh, vh, attn_mask=band)),
-            "shape": f"B=1 S={S} H={H} K={K} D={D} window={W} bf16"}
+    qf, kf, vf = q.float(), k.float(), v.float()
+    mma_err = flash_agree(torch, q, k, v, flash_attention(q, k, v, window=W),
+                          W)
+    fma_err = flash_agree(torch, q, k, v, flash_attention(
+        qf, kf, vf, window=W).to(torch.bfloat16), W)
+    v4 = (4 + 4 * torch.rand(v.shape, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    ref4 = flash_attention(q, k, v4, window=W, impl="ref")
+    scaled = {}
+    for route, out4 in (("mma", flash_attention(q, k, v4, window=W)),
+                        ("fma", flash_attention(qf, kf, v4.float(),
+                                                window=W).to(torch.bfloat16))):
+        scaled[f"{route}_max_abs_err"] = float((out4.float() - ref4.float())
+                                               .abs().max())
+        scaled[f"{route}_bf16_steps"] = bf16_steps(torch, out4, ref4)
+        assert scaled[f"{route}_bf16_steps"] <= 1, ("flash_attention V in "
+                                                    "[4, 8)", route, scaled)
+    del ref4
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+           "launches": 0, "max_abs_err": err["bfloat16"],
+           "f32_max_abs_err": err["float32"],
+           **times(timer, lambda: flash_attention(q, k, v, window=W),
+                   sdpa_band(torch, q, k, v, W)),
+           "plain_ms": timer(lambda: flash_attention(q, k, v, window=W,
+                                                     impl="ref")),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "v_in_4_8": scaled,
+           "fma_route": {"ms": timer(lambda: flash_attention(qf, kf, vf,
+                                                             window=W)),
+                         "max_abs_err": fma_err, "mma_max_abs_err": mma_err},
+           "shape": f"B=1 S={S} H={H} K={K} D={D} window={W} bf16"}
+    print(f"kernel flash_attention: bf16 at {row['shape']}: tensor cores "
+          f"max_abs_err {mma_err:.3g}, {row['ms']:.4f} ms; the FMA route "
+          f"on the same inputs max_abs_err {fma_err:.3g}, "
+          f"{row['fma_route']['ms']:.4f} ms; V in [4, 8): tensor cores "
+          f"max_abs_err {scaled['mma_max_abs_err']:.3g} "
+          f"({scaled['mma_bf16_steps']:.3g} bf16 steps), the FMA route "
+          f"{scaled['fma_max_abs_err']:.3g} ({scaled['fma_bf16_steps']:.3g} "
+          f"steps); each within one step", flush=True)
+    return row
+
+
+def bf16_steps(torch, out, ref) -> float:
+    """The largest |out - ref| in bf16 steps (units in the last place) at
+    the larger of the two magnitudes."""
+    a, b = out.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8))
+                 .max())
 
 
 def decode_inputs(torch, g, B, S, H, K, D, dtype, lens, dev="cuda"):
@@ -744,23 +859,16 @@ def check_decode(torch, g, timer):
     q, k, v, ln = decode_inputs(torch, g, B, S, H, K, D, torch.bfloat16,
                                 (S,) * B)
     b_ms, b_by = bound(*decode_work(q, k, ln), "bfloat16")
-    # yardstick: SDPA over the GQA-expanded cache, the valid slots as a mask
-    qh = q[:, :, None]
-    kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
-              .contiguous() for x in (k, v))
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < ln[:, None])[:, None, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
             "launches": 0, "max_abs_err": err["bfloat16"],
             "f32_max_abs_err": err["float32"],
-            "ms": timer(lambda: decode_attention(q, k, v, ln)),
+            **times(timer, lambda: decode_attention(q, k, v, ln),
+                    sdpa_slots(torch, q, k, v, ln)),
             "plain_ms": timer(lambda: decode_attention(q, k, v, ln,
                                                        impl="ref")),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
             "shape": f"B={B} Sk={S} H={H} K={K} D={D} kv_len={S} bf16"}
 
 
@@ -1115,15 +1223,13 @@ def check_ivf_pq_on_path(torch, probes, n_launches):
     on_path = {
         "shape": f"Q={Q} L={L} cap={cap} S={S} D={D} n_probe={n_probe} k={k}",
         "launches": n_launches, "max_abs_err": err, "rows_excused": excused,
-        "ms": timer(lambda: ivf_pq_probe_cuda(*args)),
+        **times(timer, lambda: ivf_pq_probe_cuda(*args)),
         "plain_ms": timer(lambda: ivf_pq_probe_ref(*args[:8], k=k,
                                                    n_probe=n_probe)),
         "bound_ms": b_ms, "bound_by": b_by}
     print(f"fed: K6 on the path ({on_path['shape']}): {n_launches} launch(es) "
           f"== plain (max score err {err:.3g}, {excused} rows excused by "
-          f"near ties); {on_path['ms']:.4f} ms (plain "
-          f"{on_path['plain_ms']:.4f}, bound {b_ms:.5f} by {b_by})",
-          flush=True)
+          f"near ties); {times_text(on_path)}", flush=True)
     return on_path
 
 
@@ -1318,8 +1424,8 @@ def swa_on_path(torch, fa_call, dec_call, window):
     """K8's first launch at S = 4608 (a layer of the long prompts' prefill)
     and K7's first launch over a full ring (a decode step while the long
     prompts decode), each held against its plain version on the same
-    tensors (bf16, 2e-2), then timed there: K8 on one row of the launch,
-    K7 on the whole launch."""
+    tensors (bf16, 2e-2), then timed there beside its SDPA yardstick: K8
+    on one row of the launch, K7 on the whole launch."""
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -1337,7 +1443,8 @@ def swa_on_path(torch, fa_call, dec_call, window):
     fa = {"shape": f"B={B} S={S} H={H} K={K} D={D} window={window} "
                    f"{_dt(q.dtype)} (timed on row 0)",
           "max_abs_err": fa_err,
-          "ms": timer(lambda: flash_attention_cuda(q1, k1, v1, **kw)),
+          **times(timer, lambda: flash_attention_cuda(q1, k1, v1, **kw),
+                  sdpa_band(torch, q1, k1, v1, window)),
           "plain_ms": timer(lambda: flash_attention_ref(q1, k1, v1,
                                                         window=window)),
           "bound_ms": b_ms, "bound_by": b_by}
@@ -1348,14 +1455,13 @@ def swa_on_path(torch, fa_call, dec_call, window):
                     f"K={k.shape[2]} D={q.shape[2]} kv_len "
                     f"{ln.tolist()} {_dt(q.dtype)}",
            "max_abs_err": dec_err,
-           "ms": timer(lambda: decode_attention_cuda(q, k, v, ln)),
+           **times(timer, lambda: decode_attention_cuda(q, k, v, ln),
+                   sdpa_slots(torch, q, k, v, ln)),
            "plain_ms": timer(lambda: decode_attention_ref(q, k, v, ln)),
            "bound_ms": b_ms, "bound_by": b_by}
     for name, r in (("flash_attention", fa), ("decode_attention", dec)):
         print(f"swa: {name} on the path ({r['shape']}): == plain (max err "
-              f"{r['max_abs_err']:.3g}); {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by "
-              f"{r['bound_by']})", flush=True)
+              f"{r['max_abs_err']:.3g}); {times_text(r)}", flush=True)
     return {"flash_attention": fa, "decode_attention": dec}
 
 

@@ -4,43 +4,75 @@ One kernel serves the four TPU kernels it replaces
 (``similarity_topk_batched_kernel``, ``similarity_lookup_kernel``,
 ``similarity_topk_touch_kernel`` through ``similarity_topk_launch``;
 ``similarity_topk_kernel`` through its own entry,
-``similarity_topk_single_launch``).  The wrappers check device, dtype,
-shape and contiguity, allocate the outputs with ``torch.empty``, launch on
-``torch.cuda.current_stream()``, raise on a launch error, and count the
-launch in ``LAUNCHES``.  Padding and layout are ``ops.py``'s job.
+``similarity_topk_single_launch``).  Each entry makes two CUDA launches:
+a score pass over tiles of the keys (and splits of D) that writes partial
+dot products, and a merge that sums them and takes the top-k.  The
+wrappers check device, dtype, shape and contiguity, allocate the outputs
+with ``torch.empty``, launch on the current stream, raise on a launch
+error, and count one launch per call in ``LAUNCHES``.  Padding and layout
+are ``ops.py``'s job.  The kernels take microseconds, less than the host
+takes to issue a call, so the wrappers keep their host work short: the
+entry points and the workspace size per shape are looked up once, the
+outputs are allocated in their final shapes (no views on the way out),
+and the score pass's workspace is one buffer per device and stream, grown
+on demand and reused (launches on one stream run in order, so a launch
+finds the previous one done with it).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels._build import LAUNCHES, check, load
 
-K_MAX = 32               # largest k the kernel's register top-k holds
-_MAX_SMEM = 227 * 1024   # shared memory a block may use on Hopper
+K_MAX = 32               # largest k (the merge reads every row once per place)
 
 _VP = ctypes.c_void_p
+_I = ctypes.c_int
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
     fn = load("similarity").similarity_topk_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
-                       _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_int, _VP]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP,
+                   _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_float, _I, _I,
+                   _VP]
+    fn.restype = _I
     return fn
 
 
+@functools.lru_cache(maxsize=None)
 def _single_fn():
     fn = load("similarity").similarity_topk_single_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, _VP, _VP, _VP]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP]
+    fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _ws_entries(NQ: int, C: int, D: int) -> int:
+    """fp32 entries of the score pass's partial dot products (D splits,
+    NQ, C), which the merge pass sums."""
+    fn = load("similarity").similarity_workspace_size
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn(NQ, C, D)
+
+
+_WORKSPACE = {}          # (device index, stream) -> fp32 workspace
+
+
+def _workspace(t: torch.Tensor, stream: int, NQ: int, C: int,
+               D: int) -> torch.Tensor:
+    n = _ws_entries(NQ, C, D)
+    key = (t.get_device(), stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _WORKSPACE[key] = torch.empty(n, dtype=torch.float32,
+                                           device=t.device)
+    return ws
 
 
 def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
@@ -49,48 +81,49 @@ def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
                          f"(got {t.device})")
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
+_F32 = (torch.float32,)
+_I32 = (torch.int32,)
 
 
-def _check_shape(k, C, D):
+def _check_k(k, C):
     if not 1 <= k <= min(K_MAX, C):
         raise ValueError(f"k={k} must be in [1, min({K_MAX}, C={C})]")
-    if D * 4 + 8 * K_MAX * 8 > _MAX_SMEM:
-        raise ValueError(f"D={D} does not fit the kernel's shared memory")
 
 
-def _launch(name, queries, keys, valid, k, *, qmask=None, last_used=None,
-            freq=None, clock=None, threshold=0.0):
-    """``keys`` (N, C, D), or (C, D) shared by every group."""
-    N, Q, D = queries.shape
+def _stream(t: torch.Tensor) -> int:
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _launch(name, queries, keys, valid, N, Q, k, out_shape, touch=None,
+            threshold=0.0):
+    """Allocates the outputs and the workspace, launches and counts.
+    ``queries`` holds N * Q rows of D and ``valid`` N rows of C (their
+    shapes checked by the caller); ``keys`` is (N, C, D), or (C, D) shared
+    by every group.  ``touch``: (qmask, last_used_in, freq_in, last_used,
+    freq, clock)."""
+    C, D = keys.shape[-2], keys.shape[-1]
     shared = keys.dim() == 2
-    C = keys.shape[-2]
-    _need(queries, "queries", (torch.float32,), (N, Q, D))
-    _need(keys, "keys", (torch.float32,), (C, D) if shared else (N, C, D))
-    _need(valid, "valid", _MASK_DTYPES, (N, C))
-    _check_shape(k, C, D)
+    _need(keys, "keys", _F32, (C, D) if shared else (N, C, D))
+    _check_k(k, C)
     dev = queries.device
-    idx = torch.empty((N, Q, k), dtype=torch.int32, device=dev)
-    score = torch.empty((N, Q, k), dtype=torch.float32, device=dev)
-    touch = qmask is not None
-    if touch:
-        _need(qmask, "qmask", _MASK_DTYPES, (Q,))
-        _need(last_used, "last_used", (torch.int32,), (C,))
-        _need(freq, "freq", (torch.int32,), (C,))
-        _need(clock, "clock", (torch.int32,), (1,))
+    idx = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    score = torch.empty(out_shape, dtype=torch.float32, device=dev)
     if N and Q:
-        ptr = lambda t: None if t is None else t.data_ptr()     # noqa: E731
+        stream = _stream(queries)
+        ws = _workspace(queries, stream, N * Q, C, D)
+        meta = ((None,) * 6 if touch is None
+                else tuple(t.data_ptr() for t in touch))
         err = _fn()(queries.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-                    N, Q, C, D, k, idx.data_ptr(), score.data_ptr(),
-                    ptr(qmask), ptr(last_used), ptr(freq), ptr(clock),
-                    float(threshold), int(touch), int(shared),
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    N, Q, C, D, k, ws.data_ptr(), idx.data_ptr(),
+                    score.data_ptr(), *meta, float(threshold),
+                    touch is not None, shared, stream)
         check("similarity", err, name)
         LAUNCHES[name] += 1
     return idx, score
@@ -100,7 +133,11 @@ def similarity_topk_batched_cuda(queries, keys, valid, k: int):
     """queries (N, Q, D) f32, keys (N, C, D) f32 — or (C, D), one matrix
     shared by every group — valid (N, C) bool/u8 -> (idx (N, Q, k) int32,
     score (N, Q, k) f32)."""
-    return _launch("similarity_topk_batched", queries, keys, valid, k)
+    N, Q, D = queries.shape
+    _need(queries, "queries", _F32, (N, Q, D))
+    _need(valid, "valid", _MASK_DTYPES, (N, keys.shape[-2]))
+    return _launch("similarity_topk_batched", queries, keys, valid, N, Q, k,
+                   (N, Q, k))
 
 
 def similarity_topk_cuda(queries, keys, valid, k: int):
@@ -109,18 +146,19 @@ def similarity_topk_cuda(queries, keys, valid, k: int):
     row gives indices 0..k-1 at -1e30."""
     Q, D = queries.shape
     C = keys.shape[0]
-    _need(queries, "queries", (torch.float32,), (Q, D))
-    _need(keys, "keys", (torch.float32,), (C, D))
+    _need(queries, "queries", _F32, (Q, D))
+    _need(keys, "keys", _F32, (C, D))
     _need(valid, "valid", _MASK_DTYPES, (C,))
-    _check_shape(k, C, D)
+    _check_k(k, C)
     dev = queries.device
     idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
     score = torch.empty((Q, k), dtype=torch.float32, device=dev)
     if Q:
+        stream = _stream(queries)
+        ws = _workspace(queries, stream, Q, C, D)
         err = _single_fn()(queries.data_ptr(), keys.data_ptr(),
-                           valid.data_ptr(), Q, C, D, k, idx.data_ptr(),
-                           score.data_ptr(),
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           valid.data_ptr(), Q, C, D, k, ws.data_ptr(),
+                           idx.data_ptr(), score.data_ptr(), stream)
         check("similarity", err, "similarity_topk")
         LAUNCHES["similarity_topk"] += 1
     return idx, score
@@ -129,20 +167,35 @@ def similarity_topk_cuda(queries, keys, valid, k: int):
 def similarity_lookup_cuda(queries, keys, valid):
     """queries (Q, D), keys (C, D), valid (C,) -> (idx (Q,) int32, score
     (Q,) f32); an all-invalid row gives idx 0, score -1e30."""
-    idx, score = _launch("similarity_lookup", queries[None], keys[None],
-                         valid[None], 1)
-    return idx[0, :, 0], score[0, :, 0]
+    Q, D = queries.shape
+    _need(queries, "queries", _F32, (Q, D))
+    _need(valid, "valid", _MASK_DTYPES, (keys.shape[0],))
+    return _launch("similarity_lookup", queries, keys, valid, 1, Q, 1, (Q,))
 
 
 def similarity_topk_touch_cuda(queries, qmask, keys, valid, last_used, freq,
                                clock, k: int, threshold: float):
     """queries (Q, D), qmask (Q,), keys (C, D), valid (C,), last_used/freq
-    (C,) int32, clock (1,) int32 -> (idx (Q, k), score (Q, k), last_used,
-    freq).  The metadata comes back as new tensors (the kernel updates
-    clones), as the reference op is functional."""
-    last_used = last_used.clone()
-    freq = freq.clone()
-    idx, score = _launch("similarity_topk_touch", queries[None], keys[None],
-                         valid[None], k, qmask=qmask, last_used=last_used,
-                         freq=freq, clock=clock, threshold=threshold)
-    return idx[0], score[0], last_used, freq
+    (C,) int32, clock one int32 -> (idx (Q, k), score (Q, k), last_used,
+    freq).  The metadata comes back as new tensors, as the reference op
+    is functional: the kernel copies the inputs into them and touches the
+    copies."""
+    Q, D = queries.shape
+    C = keys.shape[0]
+    _need(queries, "queries", _F32, (Q, D))
+    _need(valid, "valid", _MASK_DTYPES, (C,))
+    _need(qmask, "qmask", _MASK_DTYPES, (Q,))
+    _need(last_used, "last_used", _I32, (C,))
+    _need(freq, "freq", _I32, (C,))
+    if not (clock.is_cuda and clock.dtype == torch.int32
+            and clock.numel() == 1):
+        raise ValueError("clock: one int32 on the CUDA device")
+    if not Q:
+        return (*_launch("similarity_topk_touch", queries, keys, valid, 1, Q,
+                         k, (Q, k)), last_used.clone(), freq.clone())
+    lu = torch.empty_like(last_used)
+    fr = torch.empty_like(freq)
+    idx, score = _launch("similarity_topk_touch", queries, keys, valid, 1, Q,
+                         k, (Q, k), touch=(qmask, last_used, freq, lu, fr,
+                                           clock), threshold=threshold)
+    return idx, score, lu, fr

@@ -37,6 +37,23 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
     return impl
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous fp32; no op (and no dispatch) when it is."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
+
+
+def _cont(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def _check_k(k: int, C: int) -> None:
     if k > C:
         raise ValueError(f"k={k} must be <= C={C}")
@@ -58,7 +75,7 @@ def similarity_lookup(queries: torch.Tensor, keys: torch.Tensor,
         fn = similarity_lookup_ref
     else:
         fn = lambda q, k, v: similarity_lookup_cuda(      # noqa: E731
-            q.float().contiguous(), k.float().contiguous(), v.contiguous())
+            _f32(q), _f32(k), _cont(v))
     return _run("similarity_lookup", impl, fn, (queries, keys, valid),
                 lambda: similarity_bytes(int(queries.shape[0]),
                                          int(keys.shape[0]),
@@ -78,8 +95,7 @@ def similarity_topk(queries: torch.Tensor, keys: torch.Tensor,
         fn = functools.partial(similarity_topk_ref, k=k)
     else:
         fn = lambda q, ks, v: similarity_topk_cuda(       # noqa: E731
-            q.float().contiguous(), ks.float().contiguous(), v.contiguous(),
-            k)
+            _f32(q), _f32(ks), _cont(v), k)
     return _run("similarity_topk", impl, fn, (queries, keys, valid),
                 lambda: similarity_bytes(int(queries.shape[0]), C,
                                          int(queries.shape[1])))
@@ -109,13 +125,13 @@ def similarity_topk_touch(queries: torch.Tensor, keys: torch.Tensor,
         def call(q, ks, v, lu, fr, clk, m):
             Q = q.shape[0]
             m = (torch.ones((Q,), dtype=torch.bool, device=q.device)
-                 if m is None else m.contiguous())
-            clk = torch.as_tensor(clk, device=q.device).to(
-                torch.int32).reshape(1)
+                 if m is None else _cont(m))
+            if not (isinstance(clk, torch.Tensor)
+                    and clk.dtype == torch.int32):
+                clk = torch.as_tensor(clk, device=q.device).to(torch.int32)
             return similarity_topk_touch_cuda(
-                q.float().contiguous(), m, ks.float().contiguous(),
-                v.contiguous(), lu.to(torch.int32).contiguous(),
-                fr.to(torch.int32).contiguous(), clk, k, threshold)
+                _f32(q), m, _f32(ks), _cont(v), _i32(lu), _i32(fr), clk, k,
+                threshold)
     return _run("similarity_topk_touch", impl, call,
                 (queries, keys, valid, last_used, freq, clock, mask),
                 lambda: similarity_bytes(int(queries.shape[0]), C,
@@ -142,8 +158,7 @@ def similarity_topk_batched(queries: torch.Tensor, keys: torch.Tensor,
         fn = functools.partial(similarity_topk_batched_ref, k=k)
     else:
         fn = lambda q, ks, v: similarity_topk_batched_cuda(  # noqa: E731
-            q.float().contiguous(), ks.float().contiguous(), v.contiguous(),
-            k)
+            _f32(q), _f32(ks), _cont(v), k)
     n_keys = C if keys.dim() == 2 else N * C
     return _run("similarity_topk_batched", impl, fn, (queries, keys, valid),
                 lambda: similarity_bytes(N * Q, n_keys, D))

@@ -109,6 +109,68 @@ def test_topk_batched_shared_keys(gen, k):
     torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
 
 
+def _planted_ties(keys, q, pairs):
+    """Copy key a onto key b for each (a, b) in ``pairs``, and make query i
+    equal to key a of pair i: its best slots tie exactly."""
+    for i, (a, b) in enumerate(pairs):
+        keys[:, b] = keys[:, a]
+        q[:, i] = keys[:, a]
+
+
+@pytest.mark.parametrize("k", [1, 2, 16, 32])
+@pytest.mark.parametrize("N,Q,C,D", [
+    (1, 3, 5, 64),          # C below one key tile
+    (2, 40, 37, 24),        # Q above one block's query chunk, ragged C
+    (1, 16, 300, 256),      # ragged last tile; k above a tile's rows
+    (1, 16, 100, 7),        # D % 4 != 0 (the 4-byte load path)
+])
+def test_topk_batched_tiles(gen, N, Q, C, D, k):
+    """The score pass over key tiles and the merge of their partial lists:
+    tiles with fewer rows than k, a ragged last tile, more queries than a
+    block holds, and exact ties whose copies lie in different tiles (and
+    straddle a tile boundary): the lower index must win."""
+    if k > C:
+        pytest.skip("k <= C")
+    q, keys, valid = _sim(gen, N, Q, C, D, "partly")
+    pairs = [(a, b) for a, b in ((0, C - 1), (7, 8), (3, 70), (1, 2))
+             if b < C][:Q]
+    _planted_ties(keys, q, pairs)
+    ci, cs = similarity_topk_batched(q, keys, valid, k)
+    ri, rs = similarity_topk_batched(q, keys, valid, k, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(ci, ri)
+    torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("D", [60000, 60002])
+def test_topk_batched_wide_rows(gen, D):
+    """Rows wider than a block's shared memory held (60000 fp32 values):
+    the score pass stages queries in slices, so any D works."""
+    q, keys, valid = _sim(gen, 1, 4, 40, D, "duplicate")
+    ci, cs = similarity_topk_batched(q, keys, valid, 4)
+    ri, rs = similarity_topk_batched(q, keys, valid, 4, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(ci, ri)
+    torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("k", [1, 4, 32])
+def test_topk_batched_shared_keys_groups(gen, k):
+    """The digest board: N = 3 groups, 40 queries each (the flat query
+    chunks straddle groups), one shared key matrix under three different
+    valid rows, exact ties across tiles."""
+    q, keys, _ = _sim(gen, 3, 40, 90, 64, "random")
+    _planted_ties(keys, q, [(0, 89), (7, 8), (3, 70)])
+    valid = torch.rand(3, 90, generator=gen, device="cuda") < torch.tensor(
+        [[0.9], [0.5], [0.2]], device="cuda")
+    ci, cs = similarity_topk_batched(q, keys[0], valid, k)
+    ri, rs = similarity_topk_batched(q, keys[0].expand(3, 90, 64), valid, k,
+                                     impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(ci, ri)
+    torch.testing.assert_close(cs, rs, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_lookup(gen, case):
     q, keys, valid = _sim(gen, 1, 16, 300, 256, case)
@@ -146,6 +208,76 @@ def test_topk_touch(gen, case, k):
         else:
             assert torch.equal(a, b)
     assert bool((out[3] != fr).any()) == (case != "all_invalid")
+
+
+def test_topk_touch_duplicate_winners(gen):
+    """40 queries (three query chunks) over few slots: many queries win the
+    same slot, and their freq adds and last_used maxes all land."""
+    C = 20
+    q, keys, valid = _sim(gen, 1, 40, C, 128, "random")
+    q[0, 20:] = q[0, :20]
+    lu = torch.randint(0, 50, (C,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    fr = torch.randint(0, 5, (C,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    mask = torch.rand(40, generator=gen, device="cuda") < 0.8
+    clock = torch.tensor(70, dtype=torch.int32, device="cuda")
+    args = (q[0], keys[0], valid[0], 2, lu, fr, clock)
+    out = similarity_topk_touch(*args, threshold=0.5, mask=mask)
+    ref = similarity_topk_touch(*args, threshold=0.5, mask=mask, impl="ref")
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        else:
+            assert torch.equal(a, b)
+    assert int((out[3] - fr).max()) >= 2       # a slot won twice or more
+
+
+def test_topk_side_stream(gen):
+    """The wrappers launch on the current stream, each stream with its own
+    workspace: calls on a side stream, between calls on the default one,
+    equal the plain version."""
+    q, keys, valid = _sim(gen, 2, 9, 300, 256, "partly")
+    side = torch.cuda.Stream()
+    ref = similarity_topk_batched(q, keys, valid, 4, impl="ref")
+    similarity_topk_batched(q, keys, valid, 4)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = similarity_topk_batched(q, keys, valid, 4)
+        single = similarity_topk(q[0], keys[0], valid[0], 4)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(single[0], ref[0][0])
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("Q", [0, 5, 40])
+def test_topk_touch_leaves_inputs(gen, Q):
+    """The op is functional: the kernel copies last_used and freq into new
+    tensors and touches those; the inputs keep their values, and with no
+    query the results equal them."""
+    C = 50
+    q, keys, valid = _sim(gen, 1, max(Q, 1), C, 64, "random")
+    q = q[:, :Q].contiguous()
+    lu = torch.randint(0, 50, (C,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    fr = torch.randint(0, 5, (C,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    lu0, fr0 = lu.clone(), fr.clone()
+    clock = torch.tensor(80, dtype=torch.int32, device="cuda")
+    args = (q[0], keys[0], valid[0], 1, lu, fr, clock)
+    out = similarity_topk_touch(*args, threshold=0.5)
+    ref = similarity_topk_touch(*args, threshold=0.5, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(lu, lu0) and torch.equal(fr, fr0)
+    assert out[2].data_ptr() != lu.data_ptr()
+    assert out[3].data_ptr() != fr.data_ptr()
+    for a, b in zip(out, ref):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        else:
+            assert torch.equal(a, b)
 
 
 def _paged(gen, C, G, D, dtype, B=5, K=2, page=16, n_pages=6):
@@ -193,12 +325,13 @@ def _flash(gen, B, S, H, K, D, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 64, 120, 128])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("S,window", [(1, 0), (77, 0), (77, 20),
                                       (200, 64), (300, 0)])
 def test_flash_attention(gen, S, window, G, D, dtype):
-    """K8: ragged S (no multiple of the 64-row tile), the window band and
-    causal tile skipping, GQA groups of 1 and 4."""
+    """K8: ragged S (no multiple of the row or key tile), the window band
+    and causal tile skipping, GQA groups of 1, 4 and 8; bf16 runs on the
+    tensor-core kernel, fp32 on the FMA kernel."""
     q, k, v = _flash(gen, 2, S, 2 * G, 2, D, dtype)
     n0 = LAUNCHES["flash_attention"]
     out = flash_attention(q, k, v, window=window)
@@ -217,6 +350,61 @@ def test_flash_attention_non_causal(gen, window):
     ref = flash_attention(q, k, v, causal=False, window=window, impl="ref")
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 30])
+def test_flash_attention_non_causal_bf16(gen, window):
+    """The non-causal mode on the tensor-core route."""
+    q, k, v = _flash(gen, 1, 150, 8, 2, 64, torch.bfloat16)
+    out = flash_attention(q, k, v, causal=False, window=window)
+    ref = flash_attention(q, k, v, causal=False, window=window, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [15, 16, 17, 4608])
+def test_flash_attention_swa_shapes(gen, S, dtype):
+    """h2o-danube3-4b's attention (H = 32, K = 8, head_dim 120, padded to
+    128 in shared memory) under its 4096-key window: lengths around a
+    16-row fragment and the path's long prompt, past the window."""
+    q, k, v = _flash(gen, 1, S, 32, 8, 120, dtype)
+    out = flash_attention(q, k, v, window=4096)
+    ref = flash_attention(q, k, v, window=4096, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+def _bf16_steps(out, ref):
+    """The largest |out - ref| in bf16 steps at the larger magnitude."""
+    a, b = out.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8))
+                 .max())
+
+
+@pytest.mark.parametrize("route", ["tensor_cores", "fma"])
+@pytest.mark.parametrize("S,G,D", [(17, 4, 120), (300, 1, 64),
+                                   (4608, 4, 120)])
+def test_flash_attention_bf16_v_in_4_8(gen, S, G, D, route):
+    """V drawn from [4, 8), so every output lies in [4, 8), where one bf16
+    step is 2^-5, more than the 2e-2 the other bf16 cases hold to: each
+    output within one bf16 step of the plain version's, on the
+    tensor-core route (bf16 inputs) and on the FMA route (the same inputs
+    widened to fp32, the output rounded to bf16)."""
+    q, k, _ = _flash(gen, 1, S, 8 * G, 8, D, torch.bfloat16)
+    v = (4 + 4 * torch.rand(k.shape, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    ref = flash_attention(q, k, v, window=4096, impl="ref")
+    if route == "fma":
+        out = flash_attention(q.float(), k.float(), v.float(),
+                              window=4096).to(torch.bfloat16)
+    else:
+        out = flash_attention(q, k, v, window=4096)
+    torch.cuda.synchronize()
+    assert float(ref.float().min()) >= 4
+    assert _bf16_steps(out, ref) <= 1
 
 
 def _decode(gen, B, S, H, K, D, dtype, lens):
