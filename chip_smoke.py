@@ -380,13 +380,19 @@ def phase_kernels(torch):
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, "
               f"{times_text(k)}",
               flush=True)
+        for sub in ("prefill", "prefill_b1"):
+            if sub in k:
+                print(f"kernel {k['name']} {sub} ({k[sub]['shape']}): "
+                      f"max_abs_err {k[sub]['max_abs_err']:.3g}, "
+                      f"{times_text(k[sub])}", flush=True)
     return kernels
 
 
 def paged_inputs(torch, g, C, dtype, *, B=8, H=32, K=8, D=64, page=16,
-                 n_pages=32, dev="cuda"):
-    """A pool with shared pages, INVALID tail entries and an idle row (the
-    last), at the main path's attention shapes."""
+                 n_pages=32, lens=(64, 96, 200, 300, 131, 17, 40, 0),
+                 idle=True, dev="cuda"):
+    """A pool with shared pages, INVALID tail entries and (``idle``) an
+    idle last row, at the main path's attention shapes."""
     INVALID = 2 ** 30
     P = 2 * B * n_pages
     q = 0.5 * torch.randn(B, C, H, D, generator=g, device=dev)
@@ -394,16 +400,23 @@ def paged_inputs(torch, g, C, dtype, *, B=8, H=32, K=8, D=64, page=16,
     vp = torch.randn(P, page, K, D, generator=g, device=dev)
     # row 0 maps >= 4 pages, which row 1 shares as its head; the last row
     # is idle (length 0, an all-INVALID table row)
-    lens = [min(n, n_pages * page - C)
-            for n in [64, 96, 200, 300, 131, 17, 40, 0][:B]]
+    lens = [min(n, n_pages * page - C) for n in lens[:B]]
     bt = torch.full((B, n_pages), INVALID, dtype=torch.int32, device=dev)
     perm = torch.randperm(P, generator=g, device=dev).int()
-    for b in range(B - 1):
+    for b in range(B - 1 if idle else B):
         mapped = -(-(lens[b] + C) // page)
         bt[b, :mapped] = perm[b * n_pages:b * n_pages + mapped]
-    bt[1, :4] = bt[0, :4]
+    if B > 1:
+        bt[1, :4] = bt[0, :4]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     return [t.to(dtype) for t in (q, kp, vp)] + [bt, lengths]
+
+
+# check_paged's timed shapes: decode and a prefill chunk of the smoke's
+# batch, and a chunk as the serve path issues it with one mid-prefill row
+# (the second chunk of a 320-token prompt)
+PAGED_SHAPES = {"decode": dict(C=1), "prefill": dict(C=128),
+                "prefill_b1": dict(C=128, B=1, lens=(128,), idle=False)}
 
 
 def paged_work(torch, q, kp, bt, lengths, page):
@@ -428,28 +441,30 @@ def paged_work(torch, q, kp, bt, lengths, page):
 
 def check_paged(torch, g, timer, paged_attention):
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     shapes = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for C in (1, 128):
-            q, kp, vp, bt, ln = paged_inputs(torch, g, C, dtype)
+        for key, kw in PAGED_SHAPES.items():
+            q, kp, vp, bt, ln = paged_inputs(torch, g, dtype=dtype, **kw)
             ref = paged_attention(q, kp, vp, bt, ln, impl="ref")
             out = paged_attention(q, kp, vp, bt, ln)
             torch.cuda.synchronize()
-            live = slice(0, q.shape[0] - 1)         # rows that see a key
+            idle = kw.get("idle", True)
+            live = slice(0, q.shape[0] - int(idle))  # rows that see a key
             e = float((out[live].float() - ref[live].float()).abs().max())
-            assert e <= tol[dtype], ("paged_attention", dtype, C, e)
-            # the kernel's own convention: a row with no visible key -> 0
-            assert int(torch.count_nonzero(out[-1])) == 0, (dtype, C)
-            worst = max(worst, e) if dtype == torch.bfloat16 else worst
-            shapes[(dtype, C)] = (q, kp, vp, bt, ln, e)
+            assert e <= tol[dtype], ("paged_attention", dtype, key, e)
+            if idle:
+                # the kernel's own convention: a row with no visible key -> 0
+                assert int(torch.count_nonzero(out[-1])) == 0, (dtype, key)
+            worst[dtype] = max(worst[dtype], e)
+            shapes[(dtype, key)] = (q, kp, vp, bt, ln, e)
 
-    entries = []
-    for C in (1, 128):                  # decode, then chunked prefill
-        q, kp, vp, bt, ln, e = shapes[(torch.bfloat16, C)]
+    entries = {}
+    for key in PAGED_SHAPES:
+        q, kp, vp, bt, ln, e = shapes[(torch.bfloat16, key)]
         nbytes, flops = paged_work(torch, q, kp, bt, ln, kp.shape[1])
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        B, _, H, D = q.shape
+        B, C, H, D = q.shape
         K = kp.shape[2]
         S = bt.shape[1] * kp.shape[1]
         # yardstick: one SDPA call over the gathered, GQA-expanded view
@@ -461,24 +476,22 @@ def check_paged(torch, g, timer, paged_attention):
                 <= qpos[:, :, None])[:, None]
         qh = q.transpose(1, 2).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        entries.append({
-            "C": C, "max_abs_err": e,
+        entries[key] = {
+            "max_abs_err": e,
             **times(timer, lambda: paged_attention(q, kp, vp, bt, ln),
                     lambda: sdpa(qh, kv[0], kv[1], attn_mask=mask)),
             "plain_ms": timer(lambda: paged_attention(q, kp, vp, bt, ln,
                                                       impl="ref")),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"B=8 C={C} H=32 K=8 D=64 page=16 n_pages=32 bf16"})
-    decode, prefill = entries
+            "shape": f"B={B} C={C} H={H} K={K} D={D} page={kp.shape[1]} "
+                     f"n_pages={bt.shape[1]} lengths={ln.tolist()} bf16"}
+    decode = entries.pop("decode")
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
-            "launches": 0, "max_abs_err": worst,
-            **{k: v for k, v in decode.items() if k not in ("C",
-                                                             "max_abs_err")},
-            "f32_max_abs_err": max(shapes[(torch.float32, C)][-1]
-                                   for C in (1, 128)),
-            "prefill": prefill}
+            "launches": 0, "max_abs_err": worst[torch.bfloat16],
+            **{k: v for k, v in decode.items() if k != "max_abs_err"},
+            "f32_max_abs_err": worst[torch.float32], **entries}
 
 
 def check_topk(torch, g, timer):
@@ -993,11 +1006,18 @@ def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
               "kernel)", flush=True)
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    # K5's kernels (csrc/paged_attention.cu names each paged_*_kernel)
+    k5 = [e for e in kern if "paged_" in e.key]
     print(f"{label} ({len(wave)} requests): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
-                      f" x{e.count}" for e in top), flush=True)
+                      f" x{e.count}" for e in top)
+          + "; K5 (paged attention) "
+          f"{sum(e.self_device_time_total for e in k5) / 1e3:.2f} ms: "
+          + ", ".join(f"{e.key.split('<')[0].split('::')[-1]} "
+                      f"{e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                      for e in k5), flush=True)
 
 
 # ---------------------------------------------------------------------------

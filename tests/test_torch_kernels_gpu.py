@@ -318,6 +318,112 @@ def test_paged_attention(gen, C, G, D, dtype):
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+def _paged_rows(gen, lens, C, G, D, dtype, K=2, page=16, n_pages=32,
+                idle=()):
+    """One row per entry of ``lens``: a row maps the pages its chunk can
+    see, in a random order; rows listed in ``idle`` have an all-INVALID
+    table (an idle decode slot or a pad row of a prefill chunk)."""
+    B = len(lens)
+    P = B * n_pages
+    q = 0.5 * torch.randn(B, C, K * G, D, generator=gen, device="cuda")
+    kp = 0.5 * torch.randn(P, page, K, D, generator=gen, device="cuda")
+    vp = torch.randn(P, page, K, D, generator=gen, device="cuda")
+    bt = torch.full((B, n_pages), INVALID, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(P, generator=gen, device="cuda").int()
+    for b, n in enumerate(lens):
+        if b not in idle:
+            mapped = -(-(n + C) // page)
+            bt[b, :mapped] = perm[b * n_pages:b * n_pages + mapped]
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return [t.to(dtype) for t in (q, kp, vp)] + [bt, ln]
+
+
+def _paged_check(q, kp, vp, bt, ln, idle=(), ref_args=None):
+    """One launch against the plain version (on ``ref_args`` when given)
+    at the dtype's tolerance; rows in ``idle`` are exact zeros."""
+    n0 = LAUNCHES["paged_attention"]
+    out = paged_attention(q, kp, vp, bt, ln)
+    assert LAUNCHES["paged_attention"] == n0 + 1
+    ref = paged_attention(*(ref_args or (q, kp, vp, bt, ln)), impl="ref")
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    live = [b for b in range(q.shape[0]) if b not in idle]
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=TOL[q.dtype], rtol=0)
+    for b in idle:
+        assert int(torch.count_nonzero(out[b])) == 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("C", [1, 4, 40])
+def test_paged_attention_split_edges(gen, C, G, dtype):
+    """Rows whose last visible key ends a 64-key split exactly (keys 0..63,
+    0..127) and rows one key past it (0..64, 0..128), beside an idle row;
+    the rows share their first page."""
+    lens = [64 - C, 65 - C, 128 - C, 129 - C, 0]
+    q, kp, vp, bt, ln = _paged_rows(gen, lens, C, G, 64, dtype, idle=(4,))
+    bt[1:4, 0] = bt[0, 0]              # a page shared by four rows
+    _paged_check(q, kp, vp, bt, ln, idle=(4,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 128])
+def test_paged_attention_invalid_mid_table(gen, C, dtype):
+    """An INVALID entry in the middle of a row's table (slot 1, whose keys
+    16..31 all lie before the row's first query) is skipped, as the TPU
+    kernel skips it: the same as the plain version over the table without
+    that slot (later slots shift left) and the length one page shorter."""
+    page = 16
+    q, kp, vp, bt, ln = _paged_rows(gen, [40, 200, 0], C, 4, 64, dtype,
+                                    page=page, idle=(2,))
+    ref_bt = bt.clone()
+    ref_ln = ln.clone()
+    for b in (0, 1):
+        ref_bt[b, 1:-1] = bt[b, 2:].clone()
+        ref_bt[b, -1] = INVALID
+        ref_ln[b] -= page
+        bt[b, 1] = INVALID
+    _paged_check(q, kp, vp, bt, ln, idle=(2,),
+                 ref_args=(q, kp, vp, ref_bt, ref_ln))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [0, 15, 16, 17, 300])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_paged_attention_serve_chunk(gen, D, length, dtype):
+    """A prefill chunk as the serve path issues it with one mid-prefill
+    row: B = 1, C = 128, G = 4, starting on and beside page and tile
+    boundaries."""
+    q, kp, vp, bt, ln = _paged_rows(gen, [length], 128, 4, D, dtype, K=8)
+    _paged_check(q, kp, vp, bt, ln)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_ragged_rows_and_pad_row(gen, dtype):
+    """C = 40, G = 1: 40 query rows, not a multiple of a 64-row tile; then
+    a B = 2 chunk whose second row is a pad row (all-INVALID table)."""
+    q, kp, vp, bt, ln = _paged_rows(gen, [23, 90], 40, 1, 64, dtype)
+    _paged_check(q, kp, vp, bt, ln)
+    q, kp, vp, bt, ln = _paged_rows(gen, [37, 0], 128, 4, 64, dtype, K=8,
+                                    idle=(1,))
+    _paged_check(q, kp, vp, bt, ln, idle=(1,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C", [(8, 1), (1, 128), (8, 128)])
+def test_paged_attention_run_to_run(gen, B, C, dtype):
+    """Two launches on the same inputs give bit-equal outputs: the splits
+    merge in a fixed order, with no atomics."""
+    lens = [64, 96, 200, 300, 131, 17, 40, 0][:B] if B > 1 else [128]
+    q, kp, vp, bt, ln = _paged_rows(gen, lens, C, 4, 64, dtype, K=8)
+    a = paged_attention(q, kp, vp, bt, ln)
+    b = paged_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def _flash(gen, B, S, H, K, D, dtype):
     return [torch.randn(B, S, n, D, generator=gen, device="cuda").to(dtype)
             for n in (H, K, K)]

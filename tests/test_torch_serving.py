@@ -24,7 +24,7 @@ from torch_twins import shared_prefix_prompts, twin
 
 STATS_KEYS = ("completed", "edge_hits", "peer_hits", "remote_hits", "cloud",
               "dispatches", "max_step_ladder", "prefill_tokens", "kv",
-              "semantic", "ladder", "digest")
+              "semantic", "ladder", "digest", "deadline")
 
 
 def _waves(vocab, n1=7, n2=3):
