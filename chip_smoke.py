@@ -846,23 +846,24 @@ def decode_agree(torch, q, k, v, kv_len, out):
 
 
 def check_decode(torch, g, timer):
-    """K7: f32 and bf16, head_dim 64 and 120, GQA groups of 1 and 4,
-    kv_len 1, ragged and full over 1000 slots (four splits, the last
-    ragged), and the kernel's own convention for kv_len 0 (exact zeros);
-    then timed at the swa path's decode (B = 8, a full 4096-slot ring,
-    bf16)."""
+    """K7: f32 and bf16, head_dim 64 and 120 with GQA groups of 1 and 4 on
+    8 KV heads, and granite-20b's grouping (48 query heads on 1 KV head,
+    head_dim 128); kv_len 1, ragged and full over 1000 slots (several
+    splits, the last ragged), and the kernel's own convention for kv_len 0
+    (exact zeros); then timed at the swa path's decode (B = 8, a full
+    4096-slot ring, bf16)."""
     from repro_torch.kernels.decode_attention import decode_attention
     err = {"float32": 0.0, "bfloat16": 0.0}
+    groups = [(G, 8, D) for D in (64, 120) for G in (1, 4)] + [(48, 1, 128)]
     for dtype in (torch.float32, torch.bfloat16):
-        for D in (64, 120):
-            for G in (1, 4):
-                for lens in ((1, 1, 1), (1, 517, 999), (1000,) * 3):
-                    q, k, v, ln = decode_inputs(torch, g, 3, 1000, 8 * G, 8,
-                                                D, dtype, lens)
-                    out = decode_attention(q, k, v, ln)
-                    torch.cuda.synchronize()
-                    e = decode_agree(torch, q, k, v, ln, out)
-                    err[_dt(dtype)] = max(err[_dt(dtype)], e)
+        for G, K, D in groups:
+            for lens in ((1, 1, 1), (1, 517, 999), (1000,) * 3):
+                q, k, v, ln = decode_inputs(torch, g, 3, 1000, K * G, K, D,
+                                            dtype, lens)
+                out = decode_attention(q, k, v, ln)
+                torch.cuda.synchronize()
+                e = decode_agree(torch, q, k, v, ln, out)
+                err[_dt(dtype)] = max(err[_dt(dtype)], e)
     q, k, v, ln = decode_inputs(torch, g, 2, 300, 32, 8, 120, torch.float32,
                                 (0, 300))
     out = decode_attention(q, k, v, ln)
@@ -989,7 +990,10 @@ def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import LAUNCHES
+
     torch.cuda.synchronize()
+    k7_calls = LAUNCHES["decode_attention"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -998,6 +1002,7 @@ def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    k7_calls = LAUNCHES["decode_attention"] - k7_calls
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
@@ -1006,18 +1011,25 @@ def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
               "kernel)", flush=True)
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    # K5's kernels (csrc/paged_attention.cu names each paged_*_kernel)
-    k5 = [e for e in kern if "paged_" in e.key]
+    # K5's and K7's kernels (csrc/paged_attention.cu names each
+    # paged_*_kernel, csrc/decode_attention.cu each decode_*_kernel)
+    def share(name, prefix):
+        ks = [e for e in kern if prefix in e.key]
+        busy = sum(e.self_device_time_total for e in ks)
+        return (f"; {name} {busy / 1e3:.2f} ms ({busy / busy_us:.3f} of "
+                "device busy): "
+                + ", ".join(f"{e.key.split('<')[0].split('::')[-1]} "
+                            f"{e.self_device_time_total / 1e3:.2f} ms "
+                            f"x{e.count}" for e in ks))
+
     print(f"{label} ({len(wave)} requests): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
                       f" x{e.count}" for e in top)
-          + "; K5 (paged attention) "
-          f"{sum(e.self_device_time_total for e in k5) / 1e3:.2f} ms: "
-          + ", ".join(f"{e.key.split('<')[0].split('::')[-1]} "
-                      f"{e.self_device_time_total / 1e3:.2f} ms x{e.count}"
-                      for e in k5), flush=True)
+          + share("K5 (paged attention)", "paged_")
+          + share(f"K7 (flash-decode, {k7_calls} calls)", "decode_"),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -114,6 +116,23 @@ def load(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(stem)))
         _LIBS[stem] = lib
     return lib
+
+
+# (device index, stream) -> the fp32 workspace of the kernels' split passes
+_WORKSPACE: Dict[tuple, torch.Tensor] = {}
+
+
+def workspace(t: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` fp32 entries of scratch on ``t``'s device for a
+    launch on ``stream``: one buffer per device and stream, grown on
+    demand and reused (launches on one stream run in order, so a launch
+    finds the previous one done with it)."""
+    key = (t.get_device(), stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _WORKSPACE[key] = torch.empty(n, dtype=torch.float32,
+                                           device=t.device)
+    return ws
 
 
 def check(stem: str, err: int, what: str) -> None:

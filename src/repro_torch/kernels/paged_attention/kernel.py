@@ -8,9 +8,8 @@ contiguity and alignment, allocates the output with ``torch.empty``,
 launches on the current stream, raises on a launch error, and counts one
 launch per call in ``LAUNCHES["paged_attention"]``, though a call whose
 keys are split across blocks issues a split pass and a merge pass.  The
-split pass's workspace is one buffer per device and stream, grown on
-demand and reused (launches on one stream run in order, so a launch finds
-the previous one done with it); its size per shape is looked up once.
+split pass's workspace is the one buffer per device and stream of
+``_build.workspace``; its size per shape is looked up once.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import LAUNCHES, check, load
+from repro_torch.kernels._build import LAUNCHES, check, load, workspace
 
 D_MAX = 128              # head_dim the kernel's tiles hold
 
@@ -45,18 +44,6 @@ def _ws_entries(B: int, C: int, H: int, K: int, D: int, n_pages: int,
     fn.argtypes = [_I] * 8
     fn.restype = ctypes.c_longlong
     return fn(B, C, H, K, D, n_pages, page, int(bf16))
-
-
-_WORKSPACE = {}          # (device index, stream) -> fp32 workspace
-
-
-def _workspace(t: torch.Tensor, stream: int, n: int) -> torch.Tensor:
-    key = (t.get_device(), stream)
-    ws = _WORKSPACE.get(key)
-    if ws is None or ws.numel() < n:
-        ws = _WORKSPACE[key] = torch.empty(n, dtype=torch.float32,
-                                           device=t.device)
-    return ws
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -97,7 +84,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         bf16 = q.dtype == torch.bfloat16
         stream = torch._C._cuda_getCurrentRawStream(q.get_device())
         n = _ws_entries(B, C, H, K, D, n_pages, page, bf16)
-        ws = _workspace(q, stream, n).data_ptr() if n else None
+        ws = workspace(q, stream, n).data_ptr() if n else None
         err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     block_table.data_ptr(), lengths.data_ptr(), ws,
                     out.data_ptr(), B, C, H, K, D, P, page, n_pages,

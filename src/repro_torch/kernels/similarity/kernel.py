@@ -14,9 +14,8 @@ are ``ops.py``'s job.  The kernels take microseconds, less than the host
 takes to issue a call, so the wrappers keep their host work short: the
 entry points and the workspace size per shape are looked up once, the
 outputs are allocated in their final shapes (no views on the way out),
-and the score pass's workspace is one buffer per device and stream, grown
-on demand and reused (launches on one stream run in order, so a launch
-finds the previous one done with it).
+and the score pass's workspace is the one buffer per device and stream
+of ``_build.workspace``.
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import LAUNCHES, check, load
+from repro_torch.kernels._build import LAUNCHES, check, load, workspace
 
 K_MAX = 32               # largest k (the merge reads every row once per place)
 
@@ -59,20 +58,6 @@ def _ws_entries(NQ: int, C: int, D: int) -> int:
     fn.argtypes = [_I, _I, _I]
     fn.restype = ctypes.c_longlong
     return fn(NQ, C, D)
-
-
-_WORKSPACE = {}          # (device index, stream) -> fp32 workspace
-
-
-def _workspace(t: torch.Tensor, stream: int, NQ: int, C: int,
-               D: int) -> torch.Tensor:
-    n = _ws_entries(NQ, C, D)
-    key = (t.get_device(), stream)
-    ws = _WORKSPACE.get(key)
-    if ws is None or ws.numel() < n:
-        ws = _WORKSPACE[key] = torch.empty(n, dtype=torch.float32,
-                                           device=t.device)
-    return ws
 
 
 def _need(t: torch.Tensor, name: str, dtypes, shape) -> None:
@@ -117,7 +102,7 @@ def _launch(name, queries, keys, valid, N, Q, k, out_shape, touch=None,
     score = torch.empty(out_shape, dtype=torch.float32, device=dev)
     if N and Q:
         stream = _stream(queries)
-        ws = _workspace(queries, stream, N * Q, C, D)
+        ws = workspace(queries, stream, _ws_entries(N * Q, C, D))
         meta = ((None,) * 6 if touch is None
                 else tuple(t.data_ptr() for t in touch))
         err = _fn()(queries.data_ptr(), keys.data_ptr(), valid.data_ptr(),
@@ -155,7 +140,7 @@ def similarity_topk_cuda(queries, keys, valid, k: int):
     score = torch.empty((Q, k), dtype=torch.float32, device=dev)
     if Q:
         stream = _stream(queries)
-        ws = _workspace(queries, stream, Q, C, D)
+        ws = workspace(queries, stream, _ws_entries(Q, C, D))
         err = _single_fn()(queries.data_ptr(), keys.data_ptr(),
                            valid.data_ptr(), Q, C, D, k, ws.data_ptr(),
                            idx.data_ptr(), score.data_ptr(), stream)

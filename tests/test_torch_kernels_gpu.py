@@ -27,6 +27,7 @@ import torch
 from chip_smoke import ivf_inputs, ivf_pq_check
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention.kernel import TILE, decode_plan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ivf_pq import ivf_pq_probe
 from repro_torch.kernels.paged_attention import paged_attention
@@ -520,22 +521,53 @@ def _decode(gen, B, S, H, K, D, dtype, lens):
     return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 64, 120, 128])
-@pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("lens", [(1, 1, 1), (1, 300, 599), (600, 600, 600)])
-def test_decode_attention(gen, lens, G, D, dtype):
-    """K7 over a 600-slot cache (three splits, the last ragged): kv_len 1,
-    ragged and full."""
-    q, k, v, kv_len = _decode(gen, 3, 600, 2 * G, 2, D, dtype, lens)
+def _decode_check(q, k, v, kv_len):
+    """One K7 call (one launch counted) against the plain version."""
     n0 = LAUNCHES["decode_attention"]
     out = decode_attention(q, k, v, kv_len)
     assert LAUNCHES["decode_attention"] == n0 + 1
     ref = decode_attention(q, k, v, kv_len, impl="ref")
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
-    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[q.dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 120, 128])
+@pytest.mark.parametrize("G", [1, 4, 8, 16, 48])
+@pytest.mark.parametrize("lens", [(1, 1, 1), (1, 300, 599), (600, 600, 600)])
+def test_decode_attention(gen, lens, G, D, dtype):
+    """K7 over a 600-slot cache (several splits, the last ragged): kv_len
+    1, ragged and full; G = 48 (granite-20b) is three tiles of 16 query
+    rows."""
+    _decode_check(*_decode(gen, 3, 600, 2 * G, 2, D, dtype, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_swa_launch(gen, dtype):
+    """The swa path's decode launch: B = 8 over a full 4096-slot ring,
+    h2o-danube3-4b's 32 / 8 heads of 120 dims, two rows past the window
+    and six at 528 slots."""
+    _decode_check(*_decode(gen, 8, 4096, 32, 8, 120, dtype,
+                           (4096, 4096) + (528,) * 6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(4, 120), (48, 128)])
+def test_decode_attention_split_edges(gen, G, D, dtype):
+    """Split s takes tiles s, s + n_split, ... of 32 slots: rows ending one
+    slot before, on and one slot past the end of the first round of tiles
+    (every split holds one tile, then split 0 a second), one slot past the
+    first tile, and a full cache."""
+    B, S, K = 5, 4096, 8 if G == 4 else 1
+    n_split, _ = decode_plan(B, S, K, G, D, dtype == torch.bfloat16,
+                             torch.cuda.get_device_properties(
+                                 0).multi_processor_count)
+    edge = n_split * TILE
+    assert 1 < n_split and edge + 1 < S
+    _decode_check(*_decode(gen, B, S, G * K, K, D, dtype,
+                           (edge - 1, edge, edge + 1, TILE + 1, S)))
 
 
 def test_decode_attention_empty_row_is_zeros(gen):
@@ -547,6 +579,22 @@ def test_decode_attention_empty_row_is_zeros(gen):
     torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G", [(32, 4), (4096, 4), (600, 48)])
+def test_decode_attention_empty_rows_every_plan(gen, S, G, dtype):
+    """kv_len 0 gives exact zeros with one split (S = 32: the block
+    finalizes) and with several (the merge finalizes), beside rows that
+    the plain version holds."""
+    q, k, v, kv_len = _decode(gen, 3, S, 2 * G, 2, 120, dtype, (0, S, 0))
+    out = decode_attention(q, k, v, kv_len)
+    ref = decode_attention(q, k, v, kv_len, impl="ref")
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(out[0])) == 0
+    assert int(torch.count_nonzero(out[2])) == 0
+    torch.testing.assert_close(out[1].float(), ref[1].float(),
+                               atol=TOL[dtype], rtol=0)
+
+
 def test_attention_wrappers_reject_bad_inputs(gen):
     q, k, v = _flash(gen, 1, 8, 4, 2, 20, torch.float32)
     with pytest.raises(ValueError):                # head_dim % 8 != 0
@@ -554,8 +602,8 @@ def test_attention_wrappers_reject_bad_inputs(gen):
     q, k, v = _flash(gen, 1, 8, 4, 2, 136, torch.float32)
     with pytest.raises(ValueError):                # head_dim above 128
         flash_attention(q, k, v)
-    q, k, v, kv_len = _decode(gen, 1, 8, 34, 2, 64, torch.float32, (8,))
-    with pytest.raises(ValueError):                # 17 heads per KV head
+    q, k, v, kv_len = _decode(gen, 1, 8, 130, 2, 64, torch.float32, (8,))
+    with pytest.raises(ValueError):                # 65 heads per KV head
         decode_attention(q, k, v, kv_len)
     q, k, v, kv_len = _decode(gen, 1, 8, 4, 2, 64, torch.float32, (8,))
     with pytest.raises(TypeError):                 # mixed dtypes
