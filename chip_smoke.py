@@ -70,7 +70,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM, data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 ITERS = 50
 SPIN_CYCLES = 2_000_000                          # ~1 ms at the H100's clock
 
@@ -380,7 +380,7 @@ def phase_kernels(torch):
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, "
               f"{times_text(k)}",
               flush=True)
-        for sub in ("prefill", "prefill_b1"):
+        for sub in ("prefill", "prefill_b1", "switch"):
             if sub in k:
                 print(f"kernel {k['name']} {sub} ({k[sub]['shape']}): "
                       f"max_abs_err {k[sub]['max_abs_err']:.3g}, "
@@ -626,24 +626,32 @@ def ivf_pq_bound(torch, args, sel):
     """(bound_ms, bound_by, probed lists) of one K6 call: each input read
     once in the port's storage types (codes u8, slot validity 1 byte,
     owner int32, over the lists some query probes, ``sel``), the outputs
-    written once; the coarse scores, the lookup table and the S table
-    reads per probed slot."""
+    written once; the operations at the rates of the units K6 runs them
+    on: the coarse scores and the lookup table as 3xTF32 on the tensor
+    cores (three TF32 products per fp32 product), then the S table reads
+    added per probed slot in fp32, which need the table first."""
     Q, D = args[0].shape
     L, cap, S = args[4].shape
     n_probe = sel.shape[1]
     n_lists = int(torch.unique(sel).numel())
     nbytes = (Q * D * 4 + Q * 4 + L * D * 4 + L + S * 256 * (D // S) * 4
               + n_lists * cap * (S + 1 + 4) + Q * 8 + Q * n_probe * 4)
-    flops = 2.0 * Q * L * D + 2.0 * Q * 256 * D + Q * n_probe * cap * S
+    gemm = 3 * (2.0 * Q * L * D + 2.0 * Q * 256 * D)
+    flops = (gemm * PEAK_FLOPS["float32"] / PEAK_FLOPS["tf32"]
+             + Q * n_probe * cap * S)             # in fp32-rate operations
     return (*bound(nbytes, flops, "float32"), n_lists)
 
+# the federation's default switch to the IVF-PQ board: FederationConfig's
+# 64 lists at ann_min_rows = 4096 live rows, cap 96 from the index's 1.5
+# slack, 8 probed, and 32 queries
+K6_SWITCH = {"Q": 32, "L": 64, "cap": 96, "S": 8, "D": 2048, "n_probe": 8}
 
-def check_ivf_pq(torch, g, timer):
-    """K6 at the region-board scale: Q = 4 home clusters x 64, D = 2048,
-    L = 1024 lists x cap 984 (~1M slots), S = 8, n_probe = 16."""
+
+def check_ivf_pq_shape(torch, g, Q, L, cap, S, D, n_probe):
+    """K6 against its plain version by ``ivf_pq_check`` at k = 1 and 4;
+    returns (inputs, max score error, rows excused)."""
     from repro_torch.kernels.ivf_pq import ivf_pq_probe
 
-    Q, L, cap, S, D, n_probe = 256, 1024, 984, 8, 2048, 16
     args, twin = ivf_inputs(torch, g, Q, L, cap, S, D, n_probe)
     err, excused = 0.0, 0
     for k in (1, 4):
@@ -651,23 +659,50 @@ def check_ivf_pq(torch, g, timer):
         torch.cuda.synchronize()
         e, x = ivf_pq_check(torch, args, twin, k, n_probe, out)
         err, excused = max(err, e), excused + x
-    print(f"kernel ivf_pq_probe: {excused} rows excused by near ties "
-          "(0 < gap < 1e-5); the candidate-free row and the exact twin tie "
-          "checked", flush=True)
+    return args, err, excused
+
+
+def ivf_pq_times(torch, timer, args, n_probe):
+    """K6's and its plain version's times at k = 1, and the bound."""
+    from repro_torch.kernels.ivf_pq import ivf_pq_probe
+
     _, _, sel = ivf_pq_probe(*args, k=1, n_probe=n_probe, impl="ref")
     b_ms, b_by, n_lists = ivf_pq_bound(torch, args, sel)
-    return {"name": "ivf_pq_probe", "route": "cuda",
-            "source": "src/repro_torch/csrc/ivf_pq.cu",
-            "replaces": "src/repro/kernels/ivf_pq/kernel.py:113",
-            "launches": 0, "max_abs_err": err,
-            **times(timer, lambda: ivf_pq_probe(*args, k=1,
+    return {**times(timer, lambda: ivf_pq_probe(*args, k=1,
                                                 n_probe=n_probe)),
             "plain_ms": timer(lambda: ivf_pq_probe(*args, k=1,
                                                    n_probe=n_probe,
                                                    impl="ref")),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "rows_excused": excused, "probed_lists": n_lists,
-            "shape": "Q=256 L=1024 cap=984 S=8 D=2048 n_probe=16 k=1"}
+            "bound_ms": b_ms, "bound_by": b_by, "probed_lists": n_lists}
+
+
+def check_ivf_pq(torch, g, timer):
+    """K6 at the region-board scale (Q = 4 home clusters x 64, D = 2048,
+    L = 1024 lists x cap 984, ~1M slots, S = 8, n_probe = 16) and at the
+    federation's default switch shape (``K6_SWITCH``)."""
+    Q, L, cap, S, D, n_probe = 256, 1024, 984, 8, 2048, 16
+    args, err, excused = check_ivf_pq_shape(torch, g, Q, L, cap, S, D,
+                                            n_probe)
+    sw = K6_SWITCH
+    sw_args, sw_err, sw_excused = check_ivf_pq_shape(
+        torch, g, sw["Q"], sw["L"], sw["cap"], sw["S"], sw["D"],
+        sw["n_probe"])
+    print(f"kernel ivf_pq_probe: board and switch shapes == plain at k = 1 "
+          f"and 4 (max score err {err:.3g} / {sw_err:.3g}); "
+          f"{excused + sw_excused} rows excused by near ties (0 < gap < "
+          "1e-5); the candidate-free row and the exact twin tie checked",
+          flush=True)
+    switch = {"shape": " ".join(f"{k}={v}" for k, v in sw.items()) + " k=1",
+              "max_abs_err": sw_err, "rows_excused": sw_excused,
+              **ivf_pq_times(torch, timer, sw_args, sw["n_probe"])}
+    return {"name": "ivf_pq_probe", "route": "cuda",
+            "source": "src/repro_torch/csrc/ivf_pq.cu",
+            "replaces": "src/repro/kernels/ivf_pq/kernel.py:113",
+            "launches": 0, "max_abs_err": max(err, sw_err),
+            **ivf_pq_times(torch, timer, args, n_probe),
+            "rows_excused": excused,
+            "shape": "Q=256 L=1024 cap=984 S=8 D=2048 n_probe=16 k=1",
+            "switch": switch}
 
 
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -18,6 +18,7 @@ a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -116,6 +117,13 @@ def load(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(stem)))
         _LIBS[stem] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device`` (the kernels'
+    split plans aim at about a wave of blocks)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # (device index, stream) -> the fp32 workspace of the kernels' split passes

@@ -19,7 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import LAUNCHES, check, load, workspace
+from repro_torch.kernels._build import (LAUNCHES, check, load, sm_count,
+                                        workspace)
 from repro_torch.kernels.flash_attention.kernel import check_attention_inputs
 
 G_MAX = 64               # query heads per KV head (granite-20b has 48)
@@ -39,11 +40,6 @@ def _fn():
     fn.argtypes = [_VP] * 6 + [_I] * 6 + [ctypes.c_float, _I, _VP]
     fn.restype = _I
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,7 +80,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B and H and S:
         bf16 = q.dtype == torch.bfloat16
         dev = q.get_device()
-        n_split, n = decode_plan(B, S, K, H // K, D, bf16, _sms(dev))
+        n_split, n = decode_plan(B, S, K, H // K, D, bf16, sm_count(dev))
         stream = torch._C._cuda_getCurrentRawStream(dev)
         ws = workspace(q, stream, n).data_ptr() if n else None
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: no module of ``src/repro_torch``,
-nor ``chip_smoke.py``, imports JAX or anything of the JAX package
+nor ``chip_smoke.py`` or the kernel benches (``scripts/*_bench.py``),
+imports JAX or anything of the JAX package
 (``repro``, ``repro.*``) or ``benchmarks``, checked on the AST; and the
 serving entry point and the attention kernels' modules import in a
 process where ``jax`` cannot load."""
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_bench.py"))
 BANNED = ("jax", "jaxlib", "repro", "benchmarks")
 
 

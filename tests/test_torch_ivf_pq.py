@@ -6,7 +6,10 @@ The port's plain version ``ivf_pq_probe_ref`` is held against the JAX
 probed lists exact, scores within ``atol=1e-5`` (both sum the same dot
 products in other orders).  The gather decode equals the reference's
 one-hot decode bit for bit, and ``federated_digest_lookup_ivfpq`` maps
-flat winners through ``slot_rid`` as the reference does.
+flat winners through ``slot_rid`` as the reference does.  The kernel's
+split plan (``ivf_pq_plan``, plain Python) is checked here too: the
+coarse GEMM's depth splits cover D once, every probed slot of a query
+lands in exactly one scan block, and the workspace holds every region.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ from repro.parallel.sharding import federated_digest_lookup_ivfpq as j_fed
 import repro_torch.kernels.ivf_pq.ref as ivf_ref
 from repro_torch.kernels.ivf_pq import (decode_pq_codes, ivf_pq_probe,
                                         ivf_pq_probe_ref)
+from repro_torch.kernels.ivf_pq.kernel import CODES, TILE_K, ivf_pq_plan
 from repro_torch.parallel.sharding import federated_digest_lookup_ivfpq
 
 ATOL = 1e-5
@@ -140,3 +144,62 @@ def test_cuda_impl_needs_a_cuda_tensor():
               _index(np.random.default_rng(0), 4, 8, 2, 16)]
     with pytest.raises(ValueError, match="CUDA tensor"):
         ivf_pq_probe(*arrays, k=1, n_probe=2, impl="cuda")
+
+
+H100_SMS = 132
+# (Q, L, cap, S, D, k, n_probe)
+BOARD = (256, 1024, 984, 8, 2048, 1, 16)       # the region board
+FED_PATH = (16, 4, 8, 8, 2048, 1, 4)           # the remote rung's launch
+PLAN_SHAPES = [BOARD, FED_PATH,
+               (32, 64, 96, 8, 2048, 4, 8),    # the default switch shape
+               (70, 100, 33, 16, 512, 4, 7),   # ragged against the tiles
+               (2, 60000, 2, 2, 8, 1, 2),      # 60000 lists
+               (4, 4, 8, 2, 16, 32, 2),        # k = 32 over short lists
+               (3, 8, 8, 2, 16, 4, 8)]         # n_probe = L
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_ivf_pq_plan_covers_every_probed_slot(shape):
+    """The coarse GEMM's k_split spans of D (each a whole number of
+    k-steps, as deep as the C entry makes them) cover D once, none empty;
+    each query's n_probe * cap probed slots (item p * cap + s is slot s of
+    its p-th list) land in exactly one of its n_split scan blocks, none
+    empty; the workspace holds the coarse partials, the lookup table, the
+    probed lists' coarse scores and each scan block's k scores and k
+    indices, in that order, disjoint and each 16-byte aligned."""
+    Q, L, cap, S, D, k, n_probe = shape
+    plan = ivf_pq_plan(Q, L, cap, S, D, k, n_probe, H100_SMS)
+    steps = -(-D // TILE_K)             # the C entry's rule for the depth
+    assert plan.split_depth == -(-steps // plan.k_split) * TILE_K
+    depth = np.zeros(D, np.int64)
+    for b in range(plan.k_split):
+        span = slice(b * plan.split_depth, (b + 1) * plan.split_depth)
+        assert depth[span].size > 0
+        depth[span] += 1
+    assert (depth == 1).all()
+    items = n_probe * cap
+    owner = np.zeros(items, np.int64)
+    for split in range(plan.n_split):
+        mine = np.arange(split * plan.chunk,
+                         min(items, (split + 1) * plan.chunk))
+        assert mine.size > 0
+        owner[mine] += 1
+    assert (owner == 1).all()
+    regions = [(0, plan.k_split * Q * L), (plan.lut_at, Q * S * CODES),
+               (plan.qc_at, Q * n_probe),
+               (plan.part_s_at, Q * plan.n_split * k),
+               (plan.part_i_at, Q * plan.n_split * k)]
+    end = 0
+    for at, size in regions:
+        assert at % 4 == 0 and at >= end
+        end = at + size
+    assert plan.workspace == end
+
+
+@pytest.mark.parametrize("shape", [BOARD, FED_PATH], ids=["board", "fed"])
+def test_ivf_pq_plan_fills_the_card(shape):
+    """The board and the federated path's launch (16 queries x 4 lists of
+    8 slots) give the scan at least one block per SM of an H100."""
+    Q, L, cap, S, D, k, n_probe = shape
+    plan = ivf_pq_plan(Q, L, cap, S, D, k, n_probe, H100_SMS)
+    assert Q * plan.n_split >= H100_SMS

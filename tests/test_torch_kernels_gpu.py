@@ -623,14 +623,7 @@ def test_wrappers_reject_bad_inputs(gen):
         similarity_topk_batched(qs, keys, valid, 33)
 
 
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("Q,L,cap,S,D,n_probe", [
-    (8, 16, 24, 4, 64, 4), (5, 64, 40, 8, 256, 16), (3, 8, 8, 2, 16, 8)])
-def test_ivf_pq_probe(gen, Q, L, cap, S, D, n_probe, k):
-    """K6 against its plain version, by the smoke run's own check: query 0
-    is candidate-free (indices 0..k-1 at -1e30, as lax.top_k gives over the
-    masked row) and the last query's best two slots tie exactly (lower
-    index first)."""
+def _ivf_check(gen, Q, L, cap, S, D, n_probe, k):
     args, twin = ivf_inputs(torch, gen, Q, L, cap, S, D, n_probe)
     n0 = LAUNCHES["ivf_pq_probe"]
     out = ivf_pq_probe(*args, k=k, n_probe=n_probe)
@@ -639,10 +632,53 @@ def test_ivf_pq_probe(gen, Q, L, cap, S, D, n_probe, k):
     ivf_pq_check(torch, args, twin, k, n_probe, out)
 
 
-def test_ivf_pq_probe_refuses_oversized_shared_memory(gen):
-    """The C entry owns the shared-memory layout: 60000 coarse scores do not
-    fit a block, and the launch error is raised, nothing launched."""
-    args, _ = ivf_inputs(torch, gen, 2, 60000, 2, 2, 8, 2)
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("Q,L,cap,S,D,n_probe", [
+    (8, 16, 24, 4, 64, 4), (5, 64, 40, 8, 256, 16), (3, 8, 8, 2, 16, 8),
+    (70, 100, 33, 16, 512, 7),     # Q and L ragged against 64 x 64 tiles
+    (2, 16, 300, 4, 64, 4),        # cap over 17 slot splits of 18
+    (4, 12, 8, 8, 2048, 12),       # n_probe = L, D of the federated board
+    (16, 4, 8, 8, 2048, 4),        # the federated path's launch
+    (32, 64, 96, 8, 2048, 8)])     # the federation's default switch shape
+def test_ivf_pq_probe(gen, Q, L, cap, S, D, n_probe, k):
+    """K6 against its plain version, by the smoke run's own check: query 0
+    is candidate-free (indices 0..k-1 at -1e30, as lax.top_k gives over the
+    masked row) and the last query's best two slots tie exactly (lower
+    index first).  The last shape is the ``FederationConfig`` defaults at
+    ``ann_min_rows`` = 4096 live rows (64 lists, cap 96 from the index's
+    1.5 slack, 8 probed)."""
+    _ivf_check(gen, Q, L, cap, S, D, n_probe, k)
+
+
+@pytest.mark.parametrize("k", [1, 4, 32])
+@pytest.mark.parametrize("S,D", [(2, 18), (4, 96), (8, 96), (16, 96),
+                                 (16, 256)])
+def test_ivf_pq_probe_subspaces(gen, S, D, k):
+    """S in {2, 4, 8, 16}: the scan's byte-wise code loads and, at S = 8,
+    its 8-byte loads, and depths D / S that are not a multiple of 4 floats
+    (9, 6), which the GEMMs copy 4 bytes at a time."""
+    _ivf_check(gen, 9, 20, 50, S, D, 5, k)
+
+
+def test_ivf_pq_probe_k32_few_candidates(gen):
+    """k = 32 over 2 probed lists of 8 slots: at most 16 real candidates,
+    spread over 16 partial lists (slot splits of one slot), then the
+    lowest free flat indices at -1e30."""
+    _ivf_check(gen, 4, 4, 8, 2, 16, 2, 32)
+
+
+def test_ivf_pq_probe_many_lists(gen):
+    """60000 coarse scores (no longer held in a block's shared memory)
+    run and agree with the plain version; cap 2 gives one slot a split,
+    so the twin pair lies in two partial lists."""
+    _ivf_check(gen, 2, 60000, 2, 2, 8, 2, 1)
+
+
+def test_ivf_pq_probe_refuses_oversized_table(gen):
+    """The C entry owns the scan block's layout: a table of S = 256
+    subspaces x 256 fp32 (256 KiB) does not fit a block's 227 KiB, and the
+    launch error is raised, nothing launched."""
+    args, _ = ivf_inputs(torch, gen, 2, 4, 2, 256, 256, 2)
     n0 = LAUNCHES["ivf_pq_probe"]
     with pytest.raises(RuntimeError, match="ivf_pq_probe"):
         ivf_pq_probe(*args, k=1, n_probe=2)
