@@ -31,7 +31,13 @@ Phases, one line each; any failure raises and exits non-zero:
                profiled fourth wave after a revive;
   5. k4      — the membership-aware pooled lookup (surviving_topk_lookup)
                over the federation's surviving shards, kernel vs plain;
-  6. swa     — sliding-window serving at full width on the slotted KV
+  6. reuse   — per-layer KV-block reuse (``core/layer_reuse.py``) on the
+               same model: ``BlockReuseCache(block_size=64)`` over a
+               ``SharedPrefixWorkload`` stream (4 sessions, a 384-token
+               prefix, 128-token suffixes, 12 requests); a request of an
+               earlier session reuses exactly its 6 prefix blocks;
+               every K2 launch (the per-offset sketch index) held;
+  7. swa     — sliding-window serving at full width on the slotted KV
                path: h2o-danube3-4b (random weights, bf16, window 4096)
                behind the CoIC edge cache in ``ServingEngine(kv_page=0)``;
                wave 1 is 8 prompts of 512 tokens, then 2 of 4608 (longer
@@ -40,16 +46,35 @@ Phases, one line each; any failure raises and exits non-zero:
                wave 2 repeats them (edge hits) with 4 new; one flash-
                attention launch (S = 4608) and one flash-decode launch
                (4096 slots) of the path are held against their plain
-               versions on the same tensors and timed beside their SDPA
-               yardsticks; then a profiled wave;
-  7. e2e     — the kernel path against the plain path, in fp32 (TF32
+               versions run in fp32 on the same values (``path_agree``,
+               the rule of every held attention launch) and timed beside
+               their SDPA yardsticks; then a profiled wave;
+  8. moe     — granite-moe-3b-a800m at full width and depth (40 experts
+               top-8, ``dropless``) on the paged path behind the edge
+               cache: 8 prompts of a ``SharedPrefixWorkload``, then those
+               8 (edge hits) and 8 new of the same sessions (shared
+               prefix pages); every K1-K3 launch held, K5 (the G = 3 FMA
+               route) and K8 held;
+  9. mqa     — granite-20b at full width and depth (48 query heads on 1
+               KV head, head_dim 128, GELU MLP): a paged wave (K5's decode
+               on its bf16 mma route) and a slotted wave of 512-token
+               prompts (K8, K7 at G = 48); every K1-K3 launch held; one
+               launch each of K5, K7 and K8 held against its plain
+               version and timed beside SDPA and its bound;
+ 10. qkvb    — qwen2-72b at full width (QKV biases), depth cut to 8 of 80
+               layers (the full depth does not fit the card), one paged
+               wave; K1-K3, K5 and K8 held;
+ 11. e2e     — the kernel path against the plain path, in fp32 (TF32
                off), decoded tokens and sources identical: coic-paper
                attn_impl "paged" vs "gather" on one cluster, lookup_impl
                "auto" vs "ref" on the federated waves, then the slotted
                cache with the model's attention_impl "auto" (flash
                attention and flash-decode kernels) vs "ref", for
                coic-paper (chunked admission) and h2o-danube3-4b at full
-               width cut to 2 layers.
+               width cut to 2 layers; then granite-20b (paged and
+               slotted), granite-moe-3b-a800m (paged, ``dropless``) and
+               qwen2-72b (paged) at full width cut to 2 layers, every
+               kernel against every plain version, tier counts equal too.
 
 Each path's kernel launch counters are zeroed just before it is driven
 and read just after: every kernel of the path must have run.
@@ -119,9 +144,17 @@ def main() -> None:
     fed_launches, fed_eng, fed_prompts, k6_path = phase_federated(torch,
                                                                   model)
     k4_launches = phase_surviving(torch, model, fed_eng, fed_prompts)
-    del fed_eng, model
+    del fed_eng
+    reuse_launches, reuse_held = phase_reuse(torch, model)
+    del model
     torch.cuda.empty_cache()
     swa_launches, swa_requests, swa_on_path = phase_swa(torch)
+    # the model families; each path's launches and its held launches
+    families = {"reuse": (reuse_launches, None,
+                          {"similarity_lookup": reuse_held})}
+    for path, fn in (("moe", phase_moe), ("mqa", phase_mqa),
+                     ("qkvb", phase_qkvb)):
+        families[path] = fn(torch)
     # each kernel's launches on the path that runs it: the single-cluster
     # serve path (K1-K3, K5), the federated path (K6), the surviving-shard
     # lookup (K4), the sliding-window slotted path (K7, K8)
@@ -151,9 +184,17 @@ def main() -> None:
                              "path")
     next(k for k in kernels if k["name"] == "flash_attention")[
         "launches_serve"] = launches["flash_attention"]
+    for k in kernels:
+        k["paths"] = {}
+        for path, (counts, n_req, held) in families.items():
+            if counts[k["name"]]:
+                k["paths"][path] = {"launches": counts[k["name"]],
+                                    "requests": n_req,
+                                    **held.get(k["name"], {})}
     phase_e2e(torch)
     phase_federated_e2e(torch)
     phase_slotted_e2e(torch)
+    phase_family_e2e(torch)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -466,20 +507,10 @@ def check_paged(torch, g, timer, paged_attention):
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         B, C, H, D = q.shape
         K = kp.shape[2]
-        S = bt.shape[1] * kp.shape[1]
-        # yardstick: one SDPA call over the gathered, GQA-expanded view
-        from repro_torch.kernels.paged_attention import paged_gather_view
-        kv = [paged_gather_view(x, bt).repeat_interleave(H // K, dim=2)
-              .transpose(1, 2).contiguous() for x in (kp, vp)]
-        qpos = ln.long()[:, None] + torch.arange(C, device="cuda")
-        mask = (torch.arange(S, device="cuda")[None, None, :]
-                <= qpos[:, :, None])[:, None]
-        qh = q.transpose(1, 2).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         entries[key] = {
             "max_abs_err": e,
             **times(timer, lambda: paged_attention(q, kp, vp, bt, ln),
-                    lambda: sdpa(qh, kv[0], kv[1], attn_mask=mask)),
+                    sdpa_paged(torch, q, kp, vp, bt, ln)),
             "plain_ms": timer(lambda: paged_attention(q, kp, vp, bt, ln,
                                                       impl="ref")),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -492,6 +523,23 @@ def check_paged(torch, g, timer, paged_attention):
             "launches": 0, "max_abs_err": worst[torch.bfloat16],
             **{k: v for k, v in decode.items() if k != "max_abs_err"},
             "f32_max_abs_err": worst[torch.float32], **entries}
+
+
+def sdpa_paged(torch, q, kp, vp, bt, ln):
+    """K5's yardstick: one SDPA call over the gathered, GQA-expanded view
+    of the pool, the causal mask of each row's chunk as a boolean mask."""
+    from repro_torch.kernels.paged_attention import paged_gather_view
+    B, C, H, D = q.shape
+    K = kp.shape[2]
+    S = bt.shape[1] * kp.shape[1]
+    kv = [paged_gather_view(x, bt).repeat_interleave(H // K, dim=2)
+          .transpose(1, 2).contiguous() for x in (kp, vp)]
+    qpos = ln.long()[:, None] + torch.arange(C, device=q.device)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qh = q.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, kv[0], kv[1], attn_mask=mask)
 
 
 def check_topk(torch, g, timer):
@@ -750,14 +798,16 @@ def flash_agree(torch, q, k, v, out, window):
 
 def sdpa_band(torch, q, k, v, window):
     """K8's yardstick: one SDPA call over the GQA-expanded view of q (B, S,
-    H, D), k/v (B, S, K, D), the causal band of ``window`` keys as a
-    boolean mask."""
+    H, D), k/v (B, S, K, D), the causal band of ``window`` keys (0: every
+    earlier key) as a boolean mask."""
     S, H, K = q.shape[1], q.shape[2], k.shape[2]
     qh = q.transpose(1, 2).contiguous()
     kh, vh = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
               .contiguous() for x in (k, v))
     p = torch.arange(S, device=q.device)
-    band = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - window)
+    band = p[None, :] <= p[:, None]
+    if window > 0:
+        band &= p[None, :] > p[:, None] - window
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qh, kh, vh, attn_mask=band)
 
@@ -934,35 +984,22 @@ def stream(rng, vocab, heads, n, lo=96, hi=320):
             for i, L in enumerate(rng.integers(lo, hi + 1, size=n))]
 
 
-def phase_serve(torch, model):
-    import numpy as np
-
-    from repro_torch.core.coic import CoICConfig
-    from repro_torch.core.descriptor import PrefixDescriptor
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.serving.engine import ServingConfig, ServingEngine
-
-    cfg = model.cfg
-    scfg = ServingConfig(max_batch=8, max_len=512, max_new_tokens=16,
-                         kv_page=16, prefill_chunk=128, attn_impl="paged",
-                         coic=CoICConfig(capacity=512, threshold=0.98,
-                                         k_layers=2))
-    eng = ServingEngine(model, scfg, device="cuda")
-    rng = np.random.default_rng(0)
-    heads = [rng.integers(0, cfg.vocab_size, size=(64,)).astype(np.int32)
-             for _ in range(2)]
-    wave1 = stream(rng, cfg.vocab_size, heads, 8)
-    wave2 = wave1 + stream(rng, cfg.vocab_size, heads, 8)
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()                       # the main path starts here
-    for w, wave in enumerate((wave1, wave2), 1):
+def run_waves(torch, eng, waves, label, pace=()):
+    """Each wave of prompts submitted to ``eng`` and drained; prints its
+    requests, edge hits, tokens generated, tok/s, steps and mean step.
+    Waves whose number is in ``pace`` arrive one prompt per engine step
+    (users arriving over time) rather than all at once.  Returns each
+    wave's new results."""
+    out = []
+    for w, wave in enumerate(waves, 1):
         hits0, steps0, n0 = eng.stats()["edge_hits"], eng.step_count, \
             len(eng.results)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for p in wave:
             eng.submit(p)
+            if w in pace:
+                eng.step()
         eng.run_until_drained()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -970,18 +1007,27 @@ def phase_serve(torch, model):
         gen = sum(len(r.tokens) for r in new if r.source == "cloud")
         steps = eng.step_count - steps0
         hits = eng.stats()["edge_hits"] - hits0
-        print(f"serve: wave {w}: {len(new)} requests, {hits} edge hits, "
+        print(f"{label}: wave {w}: {len(new)} requests, {hits} edge hits, "
               f"{gen} tokens generated in {dt:.3f} s ({gen / dt:.1f} tok/s), "
               f"{steps} steps, mean step {dt / max(1, steps) * 1e3:.2f} ms",
               flush=True)
-        if w == 2:
-            assert hits >= 8, ("wave 2 edge hits", hits)
+        out.append(new)
+    return out
 
-    # the edge cache's own lookup API on the served descriptors, unfused
-    # (similarity_lookup) and fused (similarity_topk_touch)
-    S = max(len(p) for p in wave2)
-    toks = np.full((len(wave2), S), -1, np.int32)
-    for i, p in enumerate(wave2):
+
+def edge_lookups(torch, eng, model, prompts, must_hit=None):
+    """The edge cache's own lookup API on the served prompts' descriptors,
+    unfused (similarity_lookup, K2) and fused (similarity_topk_touch, K3):
+    both give the same hits, indices and LRU state, and every prompt hits
+    (``must_hit``: the first ``must_hit`` prompts).  Returns each prompt's
+    hit."""
+    import numpy as np
+
+    from repro_torch.core.descriptor import PrefixDescriptor
+
+    S = max(len(p) for p in prompts)
+    toks = np.full((len(prompts), S), -1, np.int32)
+    for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
     desc = PrefixDescriptor(model, k_layers=2)(torch.as_tensor(toks,
                                                                device="cuda"))
@@ -991,12 +1037,49 @@ def phase_serve(torch, model):
         cache = dataclasses.replace(eng.semantic, fuse_touch=fuse)
         res[fuse] = cache.lookup(state, desc)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)              # ... and ends here
     (s0, r0), (s1, r1) = res[False], res[True]
-    assert bool(r0.hit.all()), "every served prompt is cached"
+    assert bool(r0.hit[:must_hit].all()), ("served prompts miss", r0.hit)
     assert torch.equal(r0.index, r1.index) and torch.equal(r0.hit, r1.hit)
     assert torch.equal(s0.last_used, s1.last_used)
     assert torch.equal(s0.freq, s1.freq)
+    return r0.hit.tolist()
+
+
+def serving_engine(torch, model, **kw):
+    """The smoke's engine: ``ServingEngine(max_batch=8, max_len=512,
+    max_new_tokens=16, kv_page=16, prefill_chunk=128, attn_impl="paged")``
+    behind the CoIC edge cache (capacity 512, threshold 0.98, 2-layer
+    prefix descriptors), ``kw`` replacing serving fields."""
+    from repro_torch.core.coic import CoICConfig
+    from repro_torch.serving.engine import ServingConfig, ServingEngine
+
+    scfg = dict(max_batch=8, max_len=512, max_new_tokens=16, kv_page=16,
+                prefill_chunk=128, attn_impl="paged",
+                coic=CoICConfig(capacity=512, threshold=0.98, k_layers=2))
+    scfg.update(kw)
+    return ServingEngine(model, ServingConfig(**scfg), device="cuda")
+
+
+def phase_serve(torch, model):
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = model.cfg
+    eng = serving_engine(torch, model)
+    rng = np.random.default_rng(0)
+    heads = [rng.integers(0, cfg.vocab_size, size=(64,)).astype(np.int32)
+             for _ in range(2)]
+    wave1 = stream(rng, cfg.vocab_size, heads, 8)
+    wave2 = wave1 + stream(rng, cfg.vocab_size, heads, 8)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # the main path starts here
+    _, new2 = run_waves(torch, eng, (wave1, wave2), "serve")
+    hits = sum(r.source == "edge" for r in new2)
+    assert hits >= 8, ("wave 2 edge hits", hits)
+    edge_lookups(torch, eng, model, wave2)
+    launches = dict(LAUNCHES)              # ... and ends here
 
     st = eng.stats()
     toks_out = np.concatenate([r.tokens for r in eng.results])
@@ -1349,7 +1432,74 @@ def phase_surviving(torch, model, eng, prompts):
 
 
 # ---------------------------------------------------------------------------
-# 6. sliding-window serving on the slotted KV path
+# 6. per-layer KV-block reuse on the serving model
+# ---------------------------------------------------------------------------
+
+
+def phase_reuse(torch, model):
+    """``BlockReuseCache(block_size=64)`` on llama3.2-1b over a
+    ``SharedPrefixWorkload`` stream: 4 sessions, a 384-token prefix (6
+    blocks) and 128-token suffixes, 12 requests of 512 tokens.  A request
+    whose session came earlier reuses its 6 prefix blocks exactly, any
+    other none; prints the semantic reuses, the reuse rate and the largest
+    logit difference between a reused pass and ``model.prefill`` on the
+    same prompt (after the path's launch counts were read).  Every K2
+    launch (the per-offset sketch index) is held against its plain
+    version (``hold_similarity``).  Returns those counts and the held
+    row."""
+    from repro_torch.core.layer_reuse import BlockReuseCache
+    from repro_torch.data.workload import SharedPrefixWorkload
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    wl = SharedPrefixWorkload(num_sessions=4, prefix_len=384,
+                              suffix_min=128, suffix_max=128,
+                              vocab_size=model.cfg.vocab_size, seed=0)
+    brc = BlockReuseCache(model, block_size=64)
+    t0 = time.perf_counter()
+    store, restore = capture_similarity()
+    torch.cuda.synchronize()
+    reset_launches()                       # the reuse path starts here
+    seen, per_req, reused = set(), [], []
+    try:
+        for sess, prompt in wl.stream(12, seed=1):
+            logits, _, lengths, st = brc.prefill(prompt)
+            assert st["blocks_exact"] == (6 if sess in seen else 0), (sess,
+                                                                      st)
+            assert int(lengths[0]) == len(prompt) == 512
+            if sess in seen:
+                reused.append((prompt, logits))
+            seen.add(sess)
+            per_req.append((sess, st["blocks_exact"], st["blocks_semantic"],
+                            st["blocks_computed"]))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(LAUNCHES)              # ... and ends here
+    assert launches["similarity_lookup"] > 0, launches
+    held = hold_similarity(torch, "similarity_lookup",
+                           store["similarity_lookup"])
+    diff = 0.0
+    for prompt, logits in reused:
+        ref, _, _ = model.prefill(torch.as_tensor(prompt[None],
+                                                  device="cuda"))
+        d = float((logits.float() - ref[0].float()).abs().max())
+        assert d < float("inf"), d                # finite (and not NaN)
+        diff = max(diff, d)
+    print(f"reuse: {model.cfg.name} bf16, 12 requests of 512 tokens, "
+          f"blocks of 64: (session, exact, semantic, computed) {per_req}; "
+          f"blocks_semantic {brc.stats.blocks_semantic}, reuse rate "
+          f"{brc.stats.reuse_rate:.4f}; max |logit| difference of a reused "
+          f"pass against model.prefill {diff:.4g}; "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    print(f"reuse: similarity_lookup on the path ({held['shape']}): "
+          f"{held['held']} launch(es) == plain (max score err "
+          f"{held['max_abs_err']:.3g}; indices equal)", flush=True)
+    return launches, held
+
+
+# ---------------------------------------------------------------------------
+# 7. sliding-window serving on the slotted KV path
 # ---------------------------------------------------------------------------
 
 
@@ -1383,10 +1533,8 @@ def phase_swa(torch):
     import repro_torch.kernels.decode_attention.ops as dec_ops
     import repro_torch.kernels.flash_attention.ops as fa_ops
     from repro_torch.configs import get_config
-    from repro_torch.core.coic import CoICConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import ServingConfig, ServingEngine
 
     cfg = get_config("h2o-danube3-4b")
     t0 = time.perf_counter()
@@ -1398,10 +1546,8 @@ def phase_swa(torch):
           f"{cfg.sliding_window}, {cfg.dtype}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # prefill_chunk is set and ignored: a ring never chunks
-    eng = ServingEngine(model, ServingConfig(
-        max_batch=8, max_len=8192, max_new_tokens=16, kv_page=0,
-        prefill_chunk=128, coic=CoICConfig(capacity=512, threshold=0.98,
-                                           k_layers=2)), device="cuda")
+    eng = serving_engine(torch, model, max_len=8192, kv_page=0,
+                         attn_impl="gather")
     Sk = eng.cache["blocks/0/k"].shape[2]
     assert Sk == cfg.sliding_window, Sk
     rng = np.random.default_rng(3)
@@ -1491,8 +1637,8 @@ def swa_on_path(torch, fa_call, dec_call, window):
     """K8's first launch at S = 4608 (a layer of the long prompts' prefill)
     and K7's first launch over a full ring (a decode step while the long
     prompts decode), each held against its plain version on the same
-    tensors (bf16, 2e-2), then timed there beside its SDPA yardstick: K8
-    on one row of the launch, K7 on the whole launch."""
+    values (``path_agree``), then timed there beside its SDPA yardstick:
+    K8 on one row of the launch, K7 on the whole launch."""
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -1502,38 +1648,432 @@ def swa_on_path(torch, fa_call, dec_call, window):
 
     timer = Timer(torch)
     (q, k, v), kw, out = fa_call
-    fa_err = flash_agree(torch, q, k, v, out, window)
+    fa_err = path_agree(torch, "flash_attention", out, lambda *a:
+                        flash_attention_ref(*a, window=window), (q, k, v))
     q1, k1, v1 = q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous()
     b_ms, b_by = bound(*flash_work(q1, k1, window), _dt(q.dtype))
     B, S, H, D = q.shape
     K = k.shape[2]
     fa = {"shape": f"B={B} S={S} H={H} K={K} D={D} window={window} "
                    f"{_dt(q.dtype)} (timed on row 0)",
-          "max_abs_err": fa_err,
+          **fa_err,
           **times(timer, lambda: flash_attention_cuda(q1, k1, v1, **kw),
                   sdpa_band(torch, q1, k1, v1, window)),
           "plain_ms": timer(lambda: flash_attention_ref(q1, k1, v1,
                                                         window=window)),
           "bound_ms": b_ms, "bound_by": b_by}
     (q, k, v, ln), _, out = dec_call
-    dec_err = decode_agree(torch, q, k, v, ln, out)
+    dec_err = path_agree(torch, "decode_attention", out,
+                         decode_attention_ref, (q, k, v, ln))
     b_ms, b_by = bound(*decode_work(q, k, ln), _dt(q.dtype))
     dec = {"shape": f"B={q.shape[0]} Sk={k.shape[1]} H={q.shape[1]} "
                     f"K={k.shape[2]} D={q.shape[2]} kv_len "
                     f"{ln.tolist()} {_dt(q.dtype)}",
-           "max_abs_err": dec_err,
+           **dec_err,
            **times(timer, lambda: decode_attention_cuda(q, k, v, ln),
                    sdpa_slots(torch, q, k, v, ln)),
            "plain_ms": timer(lambda: decode_attention_ref(q, k, v, ln)),
            "bound_ms": b_ms, "bound_by": b_by}
     for name, r in (("flash_attention", fa), ("decode_attention", dec)):
-        print(f"swa: {name} on the path ({r['shape']}): == plain (max err "
-              f"{r['max_abs_err']:.3g}); {times_text(r)}", flush=True)
+        print(f"swa: {name} on the path ({r['shape']}): == plain "
+              f"({agree_text(r)}); {times_text(r)}", flush=True)
     return {"flash_attention": fa, "decode_attention": dec}
 
 
 # ---------------------------------------------------------------------------
-# 7. kernel path vs plain path, end to end
+# 8-10. the model families: MoE, multi-query GELU, QKV bias
+# ---------------------------------------------------------------------------
+
+
+def build_full(torch, name, label, **cut):
+    """``name`` at its published widths (bf16, random weights from seed 0),
+    depth cut by ``cut`` when given; prints the build and the cut."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(name)
+    full = cfg.num_layers
+    cfg = dataclasses.replace(cfg, **cut)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    depth = (f"{cfg.num_layers} of {full} layers (depth cut)"
+             if cfg.num_layers != full else f"{full} layers")
+    print(f"{label}: built {cfg.name} ({depth}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+          f"{cfg.head_dim}, {cfg.dtype}"
+          + (f", moe_impl {model.moe_impl}" if cfg.moe else "")
+          + f") in {time.perf_counter() - t0:.1f} s", flush=True)
+    return model
+
+
+SIM_KERNELS = ("similarity_topk_batched", "similarity_lookup",
+               "similarity_topk_touch")
+
+
+def capture_similarity():
+    """Patch K1-K3's wrappers to keep every launch of the path about to
+    run: its arguments copied (the cache's keys and LRU state change
+    later) and its outputs.  Returns (store, restore)."""
+    import repro_torch.kernels.similarity.ops as sim_ops
+
+    store = {name: [] for name in SIM_KERNELS}
+    orig = {name: getattr(sim_ops, f"{name}_cuda") for name in SIM_KERNELS}
+
+    def keep(kept, fn):
+        def call(*args):
+            out = fn(*args)
+            kept.append(([a.clone() if hasattr(a, "clone") else a
+                          for a in args], out))
+            return out
+        return call
+    for name, fn in orig.items():
+        setattr(sim_ops, f"{name}_cuda", keep(store[name], fn))
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(sim_ops, f"{name}_cuda", fn)
+    return store, restore
+
+
+def hold_similarity(torch, name, calls):
+    """Every launch of K1-K3 (``name``) a path made, held against the
+    plain version on the same tensors as ``phase_kernels`` holds them:
+    indices and LRU state equal, scores within 1e-5; a K2 row with no
+    valid slot at the kernel's own convention (index 0, score -1e30)."""
+    from repro_torch.kernels.similarity.ref import (
+        similarity_lookup_ref, similarity_topk_batched_ref,
+        similarity_topk_touch_ref)
+
+    err = 0.0
+    for args, out in calls:
+        if name == "similarity_topk_batched":
+            ref = similarity_topk_batched_ref(*args)
+        elif name == "similarity_lookup":
+            ri, rs = similarity_lookup_ref(*args)
+            empty = torch.isinf(rs)
+            assert bool((out[0][empty] == 0).all()
+                        and (out[1][empty] == -1e30).all()), name
+            ref = (torch.where(empty, out[0], ri),
+                   torch.where(empty, out[1], rs))
+        else:
+            q, qmask, keys, valid, lu, fr, clock, k, threshold = args
+            ref = similarity_topk_touch_ref(q, keys, valid, k, lu, fr, clock,
+                                            threshold, mask=qmask)
+        for i, (a, b) in enumerate(zip(out, ref)):
+            if i == 1:
+                e = float((a - b).abs().max()) if a.numel() else 0.0
+                assert e <= 1e-5, (name, "score on the path", e)
+                err = max(err, e)
+            else:
+                assert torch.equal(a, b), (name, "on the path", i)
+    q, keys = calls[0][0][0], calls[0][0][2 if name.endswith("touch")
+                                            else 1]
+    return {"held": len(calls), "max_abs_err": err,
+            "shape": f"first: Q={q.shape[-2]} C={keys.shape[-2]} "
+                     f"D={keys.shape[-1]} fp32"}
+
+
+def capture_calls(eng, slotted=False):
+    """Patch the kernels' wrappers to keep, of the path about to run,
+    every launch of K1-K3 (``capture_similarity``), K8's first launch (the
+    descriptor prefix) and the first decode launch of K5 (paged) or K7
+    (slotted) made while every batch row decodes (read from the engine's
+    host state: no sync), the cache they read copied.  Returns (store,
+    restore)."""
+    import repro_torch.kernels.decode_attention.ops as dec_ops
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.kernels.paged_attention.ops as pa_ops
+
+    store, sim_restore = capture_similarity()
+    store.update({"flash_attention": [], "paged_attention": [],
+                  "decode_attention": []})
+    orig = (fa_ops.flash_attention_cuda, pa_ops.paged_attention_cuda,
+            dec_ops.decode_attention_cuda)
+    fa_ops.flash_attention_cuda = _keep_first(
+        store["flash_attention"], orig[0], lambda *a, **kw: True)
+    if slotted:
+        dec_ops.decode_attention_cuda = _keep_first(
+            store["decode_attention"], orig[2],
+            lambda *a: bool(eng.row_active.all()), clone=(1, 2))
+    else:
+        pa_ops.paged_attention_cuda = _keep_first(
+            store["paged_attention"], orig[1],
+            lambda q, *a: q.shape[1] == 1 and bool(eng.row_active.all()),
+            clone=(1, 2))
+
+    def restore():
+        (fa_ops.flash_attention_cuda, pa_ops.paged_attention_cuda,
+         dec_ops.decode_attention_cuda) = orig
+        sim_restore()
+    return store, restore
+
+
+def path_agree(torch, name, out, plain, args, shared=(), live=None):
+    """Max abs error of a launch a serving path made against its plain
+    version run in fp32 on the same values (bf16 arguments widened), one
+    batch row at a time (``shared``: the argument positions every row
+    reads whole, the page pools; ``live``: the rows that see a key): it
+    must lie within ``ATTN_TOL`` of the launch's dtype.  For a bf16 launch
+    the plain version also runs in bf16, where it rounds the logits to
+    bf16 as the reference does, an error that grows with their magnitude:
+    the kernel's distance from that result and that result's own distance
+    from the fp32 one are reported beside."""
+    wide = [x.float() if x.is_floating_point() else x for x in args]
+    rep = {"max_abs_err": 0.0}
+    if out.dtype != torch.float32:
+        rep.update(dtype_plain_max_abs_err=0.0, plain_max_abs_err=0.0)
+    for b in range(out.shape[0]):
+        if live is not None and not bool(live[b]):
+            continue
+        def row(xs):
+            return [x if i in shared else x[b:b + 1]
+                    for i, x in enumerate(xs)]
+        o = out[b:b + 1].float()
+        exact = plain(*row(wide)).float()
+        rep["max_abs_err"] = max(rep["max_abs_err"],
+                                 float((o - exact).abs().max()))
+        if out.dtype != torch.float32:
+            p = plain(*row(args)).float()
+            for key, e in (("dtype_plain_max_abs_err", o - p),
+                           ("plain_max_abs_err", p - exact)):
+                rep[key] = max(rep[key], float(e.abs().max()))
+    assert rep["max_abs_err"] <= ATTN_TOL[_dt(out.dtype)], (
+        name, "on the path", rep)
+    return rep
+
+
+def agree_text(row) -> str:
+    """``path_agree``'s report as printed."""
+    return (f"max err {row['max_abs_err']:.3g} against the plain version "
+            "in fp32" + ("" if "plain_max_abs_err" not in row else
+                         f"; {row['dtype_plain_max_abs_err']:.3g} against "
+                         f"it in bf16, itself "
+                         f"{row['plain_max_abs_err']:.3g} from fp32"))
+
+
+def hold_on_path(torch, name, call, timed=False):
+    """One launch a serving path made, held against the plain version on
+    the same values (``path_agree``; rows that see a key); with
+    ``timed``, its times beside SDPA's over the same view and the bound
+    worked out from its bytes and operations."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    args, kw, out = call
+    q = args[0]
+    shared, live = (), None
+    if name == "flash_attention":
+        B, S, H, D = q.shape
+        shape = f"B={B} S={S} H={H} K={args[1].shape[2]} D={D}"
+        kern = lambda: flash_attention_cuda(*args, **kw)       # noqa: E731
+        plain_fn = lambda *a: flash_attention_ref(*a, **kw)    # noqa: E731
+        lib, work = sdpa_band(torch, *args, 0), flash_work(q, args[1], 0)
+    elif name == "decode_attention":
+        B, H, D = q.shape
+        shape = (f"B={B} Sk={args[1].shape[1]} H={H} K={args[1].shape[2]} "
+                 f"D={D} kv_len {args[3].tolist()}")
+        kern = lambda: decode_attention_cuda(*args)            # noqa: E731
+        plain_fn = decode_attention_ref
+        lib, work = sdpa_slots(torch, *args), decode_work(q, args[1],
+                                                          args[3])
+    else:
+        kp, bt = args[1], args[3]
+        B, C, H, D = q.shape
+        shape = (f"B={B} C={C} H={H} K={kp.shape[2]} D={D} page="
+                 f"{kp.shape[1]} lengths {args[4].tolist()}")
+        kern = lambda: paged_attention_cuda(*args)             # noqa: E731
+        plain_fn = paged_attention_ref
+        lib = sdpa_paged(torch, *args)
+        work = paged_work(torch, q, kp, bt, args[4], kp.shape[1])
+        shared, live = (1, 2), bt[:, 0] < kp.shape[0]  # rows that see a key
+    rep = path_agree(torch, name, out, plain_fn, args, shared, live)
+    row = {"shape": f"{shape} {_dt(q.dtype)}", **rep}
+    if timed:
+        timer = Timer(torch)
+        b_ms, b_by = bound(*work, _dt(q.dtype))
+        row.update(**times(timer, kern, lib),
+                   plain_ms=timer(lambda: plain_fn(*args)),
+                   bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
+def serve_family(torch, model, label, waves, paths_kernels, slotted=False,
+                 timed=False, pace=(), profile=(), must_hit=None, **kw):
+    """One engine (``serving_engine`` + ``kw``) over ``waves`` of prompts
+    (``run_waves``), then, on the paged path, the edge cache's lookup API
+    on the last wave (``edge_lookups``, ``must_hit``): launch counts
+    zeroed before and read after; every kernel of ``paths_kernels`` must
+    have launched; its captured launches (``capture_calls``) are held
+    against their plain versions (K5, K7 and K8 timed with ``timed``).
+    Then, with ``profile`` prompts, a profiled wave (``profile_wave``).
+    Returns (launches, stats, held rows, results)."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    eng = serving_engine(torch, model, **kw)
+    store, restore = capture_calls(eng, slotted)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # the path starts here
+    t0 = time.perf_counter()
+    try:
+        res = run_waves(torch, eng, waves, label, pace)
+        if not slotted:
+            hit = edge_lookups(torch, eng, model, waves[-1], must_hit)
+            print(f"{label}: the edge cache's lookup API: {sum(hit)} of "
+                  f"{len(hit)} prompts hit (misses at "
+                  f"{[i for i, h in enumerate(hit) if not h]}), fused == "
+                  "unfused", flush=True)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(LAUNCHES)              # ... and ends here
+    st = eng.stats()
+    toks = np.concatenate([r.tokens for r in eng.results])
+    assert st["completed"] == sum(map(len, waves)), st["completed"]
+    assert st["max_step_ladder"] <= 2, st["max_step_ladder"]
+    assert ((toks >= 0) & (toks < model.cfg.vocab_size)).all()
+    for name in paths_kernels:
+        assert launches[name] > 0, (label, name, launches)
+    held = {}
+    for name, calls in store.items():
+        if name in paths_kernels:
+            assert calls, (label, "no launch captured", name)
+            held[name] = (hold_similarity(torch, name, calls)
+                          if name in SIM_KERNELS else
+                          hold_on_path(torch, name, calls[0], timed))
+    print(f"{label}: {st['completed']} completed (edge {st['edge_hits']}, "
+          f"cloud {st['cloud']}), prefill tokens "
+          + (f"{st['prefill_tokens']}, " if "prefill_tokens" in st else "")
+          + f"dispatches {st['dispatches']}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    for name, row in held.items():
+        text = (f"{row['held']} launch(es) == plain (max score err "
+                f"{row['max_abs_err']:.3g}; indices and LRU state equal)"
+                if name in SIM_KERNELS else
+                f"== plain ({agree_text(row)})"
+                + (f"; {times_text(row)}" if timed else ""))
+        print(f"{label}: {name} on the path ({row['shape']}): {text}",
+              flush=True)
+    if profile:
+        profile_wave(torch, eng, [(p, 0, 0) for p in profile],
+                     label=f"{label}: profile wave")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, st, held, res
+
+
+PAGED_KERNELS = ("similarity_topk_batched", "similarity_lookup",
+                 "similarity_topk_touch", "paged_attention",
+                 "flash_attention")
+
+
+def phase_moe(torch):
+    """granite-moe-3b-a800m at full width and depth (32 layers, 40 experts
+    top-8, ``dropless`` by the d_model rule), bf16, on the paged path
+    behind the CoIC edge
+    cache: wave 1 is 8 prompts of a ``SharedPrefixWorkload`` (4 sessions,
+    a 256-token prefix, 16-64-token suffixes) arriving one per step, so a
+    later prompt of a session maps the prefix pages an earlier one
+    registered (before any retires into the edge cache); wave 2 is those
+    8 (edge hits) and 8 new of the same sessions (edge hits too wherever
+    the shared prefix carries the descriptor past the threshold); then a
+    profiled wave of 8 prompts of 4 new sessions."""
+    from repro_torch.data.workload import SharedPrefixWorkload
+
+    t0 = time.perf_counter()
+    model = build_full(torch, "granite-moe-3b-a800m", "moe")
+    wl = SharedPrefixWorkload(num_sessions=4, prefix_len=256, suffix_min=16,
+                              suffix_max=64, vocab_size=model.cfg.vocab_size,
+                              seed=0)
+    prompts = [p for _, p in wl.stream(16, seed=1)]
+    fresh = dataclasses.replace(wl, seed=2)      # new sessions: misses
+    # a descriptor depends on the prompts batched with it (the dropless
+    # capacity is the call's, as in the reference: ROADMAP Queue 3), so
+    # the lookup API, which batches all 16, is held to the 8 served twice
+    launches, st, held, res = serve_family(
+        torch, model, "moe", (prompts[:8], prompts), PAGED_KERNELS,
+        pace=(1,), profile=[p for _, p in fresh.stream(8, seed=3)],
+        must_hit=8)
+    assert model.moe_impl == "dropless", model.moe_impl
+    assert st["prefill_tokens"]["shared"] > 0, st["prefill_tokens"]
+    assert sum(r.source == "edge" for r in res[1]) >= 8, "wave 2 hits"
+    del model
+    torch.cuda.empty_cache()
+    print(f"moe: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, st["completed"], held
+
+
+def phase_mqa(torch):
+    """granite-20b at full width and depth (52 layers, 48 query heads on 1
+    KV head, head_dim 128, the GELU MLP), bf16: one paged wave of 8
+    prompts of 96-320 tokens (K5's decode on its bf16 mma route), then a
+    slotted wave (``kv_page=0``, bucketed prefill) of 8 prompts of 512
+    tokens (K8 at 512 positions, K7).  One launch each of K5 (decode), K7
+    and K8 is held against its plain version and timed beside SDPA; the
+    paged engine then serves a profiled wave of 8 new prompts."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    model = build_full(torch, "granite-20b", "mqa")
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(4)
+    heads = [rng.integers(0, V, size=(64,)).astype(np.int32)
+             for _ in range(2)]
+    paged = serve_family(torch, model, "mqa paged",
+                         (stream(rng, V, heads, 8),), PAGED_KERNELS,
+                         timed=True, profile=stream(rng, V, heads, 8))
+    slotted = serve_family(
+        torch, model, "mqa slotted", (swa_prompts(rng, V, heads, 8, 512),),
+        ("similarity_topk_batched", "flash_attention", "decode_attention"),
+        slotted=True, timed=True, kv_page=0, prefill_chunk=0, max_len=1024,
+        attn_impl="gather")
+    del model
+    torch.cuda.empty_cache()
+    print(f"mqa: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {k: paged[0][k] + slotted[0][k] for k in paged[0]}
+    held = {"paged_attention": paged[2]["paged_attention"],
+            "flash_attention": slotted[2]["flash_attention"],
+            "decode_attention": slotted[2]["decode_attention"]}
+    return launches, paged[1]["completed"] + slotted[1]["completed"], held
+
+
+def phase_qkvb(torch):
+    """qwen2-72b at full width (64/8 heads, head_dim 128, QKV biases, d_ff
+    29568, vocab 152064), depth cut to 8 of 80 layers (the full depth's
+    ~145 GB of bf16 weights exceed the card), bf16: one paged wave of 8
+    prompts of 96-320 tokens; every token finite, K5 and K8 launched and
+    held against their plain versions; then a profiled wave."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    model = build_full(torch, "qwen2-72b", "qkvb", num_layers=8)
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(5)
+    heads = [rng.integers(0, V, size=(64,)).astype(np.int32)
+             for _ in range(2)]
+    launches, st, held, _ = serve_family(
+        torch, model, "qkvb", (stream(rng, V, heads, 8),), PAGED_KERNELS,
+        profile=stream(rng, V, heads, 8))
+    del model
+    torch.cuda.empty_cache()
+    print(f"qkvb: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, st["completed"], held
+
+
+# ---------------------------------------------------------------------------
+# 11. kernel path vs plain path, end to end
 # ---------------------------------------------------------------------------
 
 
@@ -1541,19 +2081,14 @@ def phase_e2e(torch):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.coic import CoICConfig
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import ServingConfig, ServingEngine
 
     cfg = dataclasses.replace(get_config("coic-paper"), dtype="float32")
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(0))
     out = {}
     for attn in ("paged", "gather"):
-        eng = ServingEngine(model, ServingConfig(
-            max_batch=8, max_len=512, max_new_tokens=16, kv_page=16,
-            prefill_chunk=128, attn_impl=attn,
-            coic=CoICConfig(capacity=512, threshold=0.98)), device="cuda")
+        eng = serving_engine(torch, model, attn_impl=attn)
         rng = np.random.default_rng(0)
         heads = [rng.integers(0, cfg.vocab_size, size=(64,)).astype(np.int32)
                  for _ in range(2)]
@@ -1604,10 +2139,8 @@ def phase_slotted_e2e(torch):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.coic import CoICConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import ServingConfig, ServingEngine
 
     for name, cut, lens in (("coic-paper", {}, None),
                             ("h2o-danube3-4b", {"num_layers": 2},
@@ -1618,11 +2151,8 @@ def phase_slotted_e2e(torch):
             model = build_model(
                 cfg, attention_impl=impl, device="cuda",
                 generator=torch.Generator(device="cuda").manual_seed(0))
-            eng = ServingEngine(model, ServingConfig(
-                max_batch=8, max_len=512, max_new_tokens=16, kv_page=0,
-                prefill_chunk=128,
-                coic=CoICConfig(capacity=512, threshold=0.98)),
-                device="cuda")
+            eng = serving_engine(torch, model, kv_page=0,
+                                 attn_impl="gather")
             rng = np.random.default_rng(0)
             heads = [rng.integers(0, cfg.vocab_size, size=(64,))
                      .astype(np.int32) for _ in range(2)]
@@ -1657,6 +2187,114 @@ def phase_slotted_e2e(torch):
               "attention + flash-decode and their plain versions",
               flush=True)
 
+
+# the new families' end-to-end runs: (config, moe_impl, KV layouts)
+FAMILY_E2E = (("granite-20b", None, ("paged", "slotted")),
+              ("granite-moe-3b-a800m", "dropless", ("paged",)),
+              ("qwen2-72b", None, ("paged",)))
+
+
+def router_margins(torch, model, tokens):
+    """Each MoE layer's router top-k margin (the k-th largest probability
+    less the (k+1)-th) at the last position of ``tokens``, through
+    ``model.forward``."""
+    import repro_torch.models.layers as L
+    seen, orig = [], L.moe_router
+
+    def rec(x, router, top_k):
+        top = torch.softmax((x @ router).float(), -1).sort(
+            -1, descending=True).values
+        seen.append(float(top[-1, top_k - 1] - top[-1, top_k]))
+        return orig(x, router, top_k)
+    L.moe_router = rec
+    try:
+        model.forward(torch.as_tensor(tokens[None], device="cuda"))
+    finally:
+        L.moe_router = orig
+    return seen
+
+
+def phase_family_e2e(torch):
+    """granite-20b (paged and slotted), granite-moe-3b-a800m (paged,
+    ``dropless``) and qwen2-72b (paged) at full width cut to 2 layers,
+    fp32 (TF32 off), random weights from seed 0: the kernel path (the
+    model's attention_impl "auto": K8, K7; attn_impl "paged": K5;
+    lookup_impl "auto": K1) against the plain path ("ref", "gather",
+    "ref") over two waves (8 prompts, then those 8 and 8 new).  Tokens,
+    sources and tier counts must be identical; where granite-moe's tokens
+    diverge, the step, the tokens and the router's top-k margins there
+    are printed first."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.coic import CoICConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+
+    for name, moe_impl, modes in FAMILY_E2E:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), dtype="float32",
+                                  num_layers=2)
+        model = build_model(
+            cfg, moe_impl=moe_impl, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        V = cfg.vocab_size
+        for mode in modes:
+            out = {}
+            for impl in ("auto", "ref"):
+                model.attention_impl = impl
+                kw = dict(coic=CoICConfig(capacity=512, threshold=0.98,
+                                          k_layers=2, lookup_impl=impl))
+                if mode == "paged":
+                    kw["attn_impl"] = "paged" if impl == "auto" else "gather"
+                else:
+                    kw.update(kv_page=0, prefill_chunk=0, attn_impl="gather")
+                eng = serving_engine(torch, model, **kw)
+                rng = np.random.default_rng(0)
+                heads = [rng.integers(0, V, size=(64,)).astype(np.int32)
+                         for _ in range(2)]
+                wave1 = stream(rng, V, heads, 8)
+                prompts = {}
+                reset_launches()
+                for wave in (wave1, wave1 + stream(rng, V, heads, 8)):
+                    for p in wave:
+                        prompts[eng.submit(p)] = p
+                    eng.run_until_drained()
+                torch.cuda.synchronize()
+                n = dict(LAUNCHES)
+                if impl == "auto":
+                    need = ("flash_attention", "similarity_topk_batched",
+                            "paged_attention" if mode == "paged"
+                            else "decode_attention")
+                    assert all(n[k] > 0 for k in need), (name, mode, n)
+                out[impl] = ({r.req_id: (r.tokens.tolist(), r.source)
+                              for r in eng.results},
+                             dict(eng.sem_org.ladder.tier_counts))
+                del eng
+            model.attention_impl = "auto"
+            if out["auto"] != out["ref"] and cfg.moe is not None:
+                (ta, _), (tr, _) = out["auto"], out["ref"]
+                rid = next(r for r in ta if ta[r] != tr[r])
+                a, b = ta[rid][0], tr[rid][0]
+                j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                seq = np.concatenate([prompts[rid],
+                                      np.asarray(b[:j], np.int32)])
+                print(f"e2e: {name} diverges at request {rid}, step {j}: "
+                      f"token {a[j:j + 1]} (kernels) vs {b[j:j + 1]} "
+                      f"(plain); router top-k margins there "
+                      f"{router_margins(torch, model, seq)}", flush=True)
+            assert out["auto"] == out["ref"], f"{name} {mode}: paths differ"
+            n_hit = sum(src == "edge" for _, src in out["auto"][0].values())
+            print(f"e2e: {name} fp32 {mode} (full width, 2 of "
+                  f"{get_config(name).num_layers} layers"
+                  + (f", moe_impl {model.moe_impl}" if cfg.moe else "")
+                  + f"), {len(out['auto'][0])} requests ({n_hit} edge hits, "
+                  f"tier counts {out['auto'][1]}): tokens, sources and tier "
+                  f"counts identical through the kernels and their plain "
+                  f"versions; {time.perf_counter() - t0:.1f} s", flush=True)
+        del model
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

@@ -232,7 +232,8 @@ _ALIASES = {
 
 # configurations this package carries a copy of; the rest of the zoo needs
 # the model families of ROADMAP.md Queue 1 item 13
-PORTED_CONFIGS = ("coic_paper", "llama32_1b", "h2o_danube3_4b")
+PORTED_CONFIGS = ("coic_paper", "llama32_1b", "h2o_danube3_4b", "granite_20b",
+                  "qwen2_72b", "granite_moe_3b_a800m")
 
 
 def get_config(name: str) -> ModelConfig:

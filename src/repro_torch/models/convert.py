@@ -4,8 +4,11 @@
 The reference stacks every ``blocks/...`` leaf along a leading layers
 axis whenever the segment repeats (``num_layers > 1``), whatever
 ``scan_layers`` says; the port keeps one module per layer.  Layouts are
-the reference's own (``wq`` (D, H, Dh), ``wo`` (H, Dh, D), ...), so a leaf
-moves across unchanged.  Arrays pass through numpy as float32 (a bf16
+the reference's own (``wq`` (D, H, Dh), ``wo`` (H, Dh, D), the GELU MLP's
+``mlp/w_in`` / ``b_in`` / ``w_out`` / ``b_out``, the experts'
+``moe/router`` (D, E), ``moe/we_*`` (E, ...), ``moe/shared/*``), so a leaf
+moves across unchanged; ``DecoderLM.leaves`` lists the ones a model has
+(no ``head/w`` under tied embeddings).  Arrays pass through numpy as float32 (a bf16
 reference leaf is widened first; the port narrows to its own dtype).
 """
 from __future__ import annotations

@@ -5,9 +5,14 @@ rotate-half RoPE, the attention mask (causal, sliding window, cache
 fill), GQA attention over a mask (the plain path of chunked prefill and
 the gathered paged view), causal attention of a full sequence through
 the flash-attention kernel (K8), the attention projections in the
-reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)) and the
-gated-SiLU MLP.  ``init_leaf`` copies the reference's
+reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)), the
+dense MLPs (gated SiLU, and the two-matrix GELU with biases) and the
+mixture of experts (top-k softmax router; ``dense`` one-hot dispatch and
+``dropless`` capacity buffers).  ``init_leaf`` copies the reference's
 initializer distribution for random weights at published widths.
+
+The expert products are plain ``bmm``/``einsum`` calls, as in the
+reference, which computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -134,9 +139,147 @@ def attention_out(blk, attn: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshe,hed->bsd", attn, blk.wo)
 
 
-def mlp_apply(blk, x: torch.Tensor) -> torch.Tensor:
-    """Gated-SiLU MLP (llama family)."""
-    g = x @ blk.w_gate
-    u = x @ blk.w_up
+def mlp_apply(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor) -> torch.Tensor:
+    """Gated-SiLU MLP (llama family; also MoE shared experts)."""
+    g = x @ w_gate
+    u = x @ w_up
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ blk.w_down
+    return h @ w_down
+
+
+def gelu_mlp_apply(blk, x: torch.Tensor) -> torch.Tensor:
+    """Two-matrix GELU MLP with biases (gpt-bigcode / granite-20b).  JAX's
+    ``gelu`` is the tanh approximation, in fp32."""
+    h = x @ blk.w_in + blk.b_in
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ blk.w_out + blk.b_out
+
+
+def dense_mlp_apply(cfg, blk, x: torch.Tensor) -> torch.Tensor:
+    """The config's dense MLP: two-matrix GELU or gated SiLU."""
+    if cfg.mlp_kind == "gelu":
+        return gelu_mlp_apply(blk, x)
+    return mlp_apply(x, blk.w_gate, blk.w_up, blk.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts.  ``w`` holds ``router`` (D, E), ``we_gate`` /
+# ``we_up`` (E, D, F), ``we_down`` (E, F, D) and, with shared experts,
+# ``shared_w_gate`` / ``shared_w_up`` / ``shared_w_down``.
+# ---------------------------------------------------------------------------
+
+
+def moe_router(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Top-k softmax router.  x: (N, D) flat tokens.  Returns (weights
+    (N, k) fp32, ids (N, k) int64, Switch-style aux loss).  The logits
+    are a matmul in the model's dtype, the softmax fp32; ties go to the
+    lower expert id (``lax.top_k``'s order: a stable descending sort)."""
+    logits = (x @ router).float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :top_k], ids[:, :top_k]
+    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    E = logits.shape[-1]
+    me = probs.mean(dim=0)
+    one_hot = torch.nn.functional.one_hot(ids, E).float().sum(1)  # (N, E)
+    fe = one_hot.mean(dim=0) / top_k
+    aux = E * torch.sum(me * fe)
+    return weights, ids, aux
+
+
+def _shared_experts(cfg, w, x: torch.Tensor, out: torch.Tensor):
+    if cfg.moe.num_shared_experts:
+        out = out + mlp_apply(x, w.shared_w_gate, w.shared_w_up,
+                              w.shared_w_down)
+    return out
+
+
+def moe_apply_dense(cfg, w, x: torch.Tensor):
+    """GShard-style dense dispatch: every expert on every token, combined
+    by the router weights (exact routing semantics, smoke scale).
+    x: (B, S, D) -> ((B, S, D), aux)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    N = B * S
+    xf = x.reshape(N, D)
+    weights, ids, aux = moe_router(xf, w.router, m.top_k)
+    comb = torch.zeros((N, m.num_experts), dtype=torch.float32,
+                       device=x.device)
+    comb.scatter_add_(1, ids, weights)                             # (N, E)
+    g = torch.einsum("nd,edf->enf", xf, w.we_gate)
+    u = torch.einsum("nd,edf->enf", xf, w.we_up)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    y = torch.einsum("enf,efd->end", h, w.we_down)
+    out = torch.einsum("end,ne->nd", y.float(), comb).to(x.dtype)
+    return _shared_experts(cfg, w, x, out.reshape(B, S, D)), aux
+
+
+def moe_capacity(n_tokens: int, cfg, capacity_factor: float = 1.25) -> int:
+    """Slots per expert of a dropless call over ``n_tokens`` tokens."""
+    m = cfg.moe
+    return max(8, int(np.ceil(n_tokens * m.top_k * capacity_factor
+                              / m.num_experts)))
+
+
+def moe_apply_dropless(cfg, w, x: torch.Tensor,
+                       capacity_factor: float = 1.25):
+    """Capacity-padded dispatch: assignment j (token-major) takes slot
+    pos = (its expert's assignments before it) in that expert's (C, D)
+    buffer, C = ``moe_capacity`` of the call's N tokens; assignments past
+    C drop (their router weight is lost; the reference's scatter adds
+    zeros into slot C - 1, which changes nothing).  The experts run as
+    one batched matmul (E, C, D) x (E, D, F).  x: (B, S, D) -> ((B, S,
+    D), aux)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    N, k, E = B * S, m.top_k, m.num_experts
+    C = moe_capacity(N, cfg, capacity_factor)
+    xf = x.reshape(N, D)
+    weights, ids, aux = moe_router(xf, w.router, k)               # (N, k)
+    flat_ids = ids.reshape(N * k)
+    # token-major rank within its expert: a stable sort keeps each
+    # expert's assignments in order, and a slot's rank in its run is its
+    # sorted place less the run's start (the reference's one-hot cumsum,
+    # without its (N*k, E) buffer)
+    order = torch.argsort(flat_ids, stable=True)
+    counts = torch.bincount(flat_ids, minlength=E)
+    starts = counts.cumsum(0) - counts
+    pos = torch.empty_like(flat_ids)
+    pos[order] = (torch.arange(N * k, device=x.device)
+                  - starts[flat_ids[order]])
+    keep = pos < C
+    safe_pos = torch.where(keep, pos, C - 1)
+    # kept assignments own distinct slots, so a plain write fills them; the
+    # dropped ones land in a spare slot C that no expert reads
+    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
+    buf[flat_ids, torch.where(keep, pos, C)] = xf.repeat_interleave(k, 0)
+    buf = buf[:, :C]
+    g = torch.bmm(buf, w.we_gate)
+    u = torch.bmm(buf, w.we_up)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    y = torch.bmm(h, w.we_down)                                   # (E, C, D)
+    gathered = y[flat_ids, safe_pos]                              # (N*k, D)
+    wts = weights.reshape(N * k) * keep
+    out = (gathered.float() * wts[:, None]).reshape(N, k, D).sum(1)
+    out = out.to(x.dtype).reshape(B, S, D)
+    return _shared_experts(cfg, w, x, out), aux
+
+
+def check_moe_impl(impl: str) -> None:
+    """``dense`` | ``dropless``; the expert-parallel ``ep`` is not ported
+    yet, and any other name is refused."""
+    if impl == "ep":
+        raise NotImplementedError(
+            "moe impl 'ep' (expert-parallel shard_map dispatch) needs the "
+            "multi-card port (ROADMAP.md Queue 1 item 12)")
+    if impl not in ("dense", "dropless"):
+        raise ValueError(f"moe impl {impl!r} not in dense | dropless")
+
+
+def moe_apply(cfg, w, x: torch.Tensor, impl: str = "dense"):
+    """``dense`` | ``dropless`` (``check_moe_impl``)."""
+    check_moe_impl(impl)
+    if impl == "dropless":
+        return moe_apply_dropless(cfg, w, x)
+    return moe_apply_dense(cfg, w, x)

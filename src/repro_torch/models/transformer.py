@@ -1,11 +1,17 @@
-"""Decoder-only LM, dense family — the port of ``repro/models/transformer.py``.
+"""Decoder-only LM, attention families — the port of
+``repro/models/transformer.py``.
 
 ``DecoderLM`` is an ``nn.Module`` holding one ``DecoderBlock`` per layer,
 with every weight in the reference's layout (``wq`` (D, H, Dh), ``wo``
 (H, Dh, D), ...), so ``models/convert.py`` moves weights across by name.
-The port runs the dense attention + gated-SiLU path, with full or
-sliding-window attention; MoE, MLA, SSM, GELU-MLP and image/audio front
-ends raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 13).
+Attention is GQA (MQA included), full or sliding-window, with optional
+QKV biases; each layer's MLP is dense (gated SiLU or the two-matrix GELU,
+by ``cfg.mlp_kind``) or a mixture of experts (``moe_impl`` ``dense`` |
+``dropless``; the reference's rule picks ``dropless`` from d_model 1024).
+MLA, SSM, encoder-decoder and image/audio front ends raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 13), as do MoE layouts
+the reference splits into several segments (leading dense layers, a
+period above 1).
 
 ``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the attention of
 full sequences (``forward``, ``forward_hidden``, ``prefill``: the
@@ -59,6 +65,17 @@ BLOCK_LEAVES = {
     "mlp/w_gate": ("w_gate", "normal"),
     "mlp/w_up": ("w_up", "normal"),
     "mlp/w_down": ("w_down", "normal"),
+    "mlp/w_in": ("w_in", "normal"),
+    "mlp/b_in": ("b_in", "zeros"),
+    "mlp/w_out": ("w_out", "normal"),
+    "mlp/b_out": ("b_out", "zeros"),
+    "moe/router": ("router", "small_normal"),
+    "moe/we_gate": ("we_gate", "normal"),
+    "moe/we_up": ("we_up", "normal"),
+    "moe/we_down": ("we_down", "normal"),
+    "moe/shared/w_gate": ("shared_w_gate", "normal"),
+    "moe/shared/w_up": ("shared_w_up", "normal"),
+    "moe/shared/w_down": ("shared_w_down", "normal"),
 }
 # top-level reference param name -> (DecoderLM attr, init)
 TOP_LEAVES = {
@@ -68,33 +85,51 @@ TOP_LEAVES = {
 }
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    unported = {"moe": cfg.moe is not None, "mla": cfg.mla is not None,
+def _check_ported(cfg: ModelConfig) -> None:
+    m = cfg.moe
+    unported = {"mla": cfg.mla is not None,
                 "ssm": cfg.ssm is not None or cfg.family in ("ssm", "hybrid"),
                 "encdec": cfg.encdec is not None or cfg.family == "encdec",
-                "mlp_kind": cfg.mlp_kind != "gated_silu",
                 "image/audio front end": bool(cfg.num_image_patches
-                                              or cfg.audio_frontend)}
+                                              or cfg.audio_frontend),
+                "moe layer pattern": m is not None and (
+                    m.first_dense_layers > 0 or m.expert_layer_period != 1
+                    or m.expert_layer_offset != 0)}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP.md Queue "
-            "1 item 13, other model families); the port runs the dense "
-            "attention + gated-SiLU path")
+            "1 item 13, other model families); the port runs GQA attention "
+            "with dense or MoE MLPs in every layer")
 
 
 class DecoderBlock(nn.Module):
-    """One dense layer's weights (attention + gated-SiLU MLP)."""
+    """One layer's weights: attention, then the MLP of its kind (gated
+    SiLU, GELU with biases, or routed experts and shared experts)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device,
+                 mlp: str):
         super().__init__()
         D, H, K, Dh, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim, cfg.d_ff)
+        self.mlp = mlp
         shapes = {"attn_norm": (D,), "wq": (D, H, Dh), "wk": (D, K, Dh),
-                  "wv": (D, K, Dh), "wo": (H, Dh, D), "mlp_norm": (D,),
-                  "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
+                  "wv": (D, K, Dh), "wo": (H, Dh, D), "mlp_norm": (D,)}
         if cfg.qkv_bias:
             shapes.update(bq=(H, Dh), bk=(K, Dh), bv=(K, Dh))
+        if mlp == "moe":
+            m = cfg.moe
+            E, Fe = m.num_experts, m.d_ff_expert
+            shapes.update(router=(D, E), we_gate=(E, D, Fe),
+                          we_up=(E, D, Fe), we_down=(E, Fe, D))
+            if m.num_shared_experts:
+                Fs = m.d_ff_shared
+                shapes.update(shared_w_gate=(D, Fs), shared_w_up=(D, Fs),
+                              shared_w_down=(Fs, D))
+        elif cfg.mlp_kind == "gelu":
+            shapes.update(w_in=(D, F), b_in=(F,), w_out=(F, D), b_out=(D,))
+        else:
+            shapes.update(w_gate=(D, F), w_up=(D, F), w_down=(F, D))
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=dtype, device=device),
@@ -106,14 +141,20 @@ class DecoderLM(nn.Module):
     chunked-prefill / decode entry points."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto",
+                 moe_impl: Optional[str] = None):
         super().__init__()
-        _check_dense(cfg)
+        _check_ported(cfg)
         if attention_impl not in ("auto", "cuda", "ref"):
             raise ValueError(f"attention_impl {attention_impl!r} not in "
                              "auto | cuda | ref")
         self.cfg = cfg
         self.attention_impl = attention_impl
+        # the reference's rule: the dispatch einsums of ``dense`` dominate
+        # at scale, so wide models take the capacity buffers
+        self.moe_impl = moe_impl or ("dropless" if cfg.d_model >= 1024
+                                     else "dense")
+        L.check_moe_impl(self.moe_impl)
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         dev, dt = self.device, self.dtype
@@ -126,8 +167,12 @@ class DecoderLM(nn.Module):
         self.final_norm = param(cfg.d_model)
         self.head = (None if cfg.tie_embeddings
                      else param(cfg.d_model, cfg.vocab_size))
-        self.layers = nn.ModuleList(DecoderBlock(cfg, dt, dev)
-                                    for _ in range(cfg.num_layers))
+        # each layer's MLP kind: the MLP half of the reference's sub-layer
+        # signature (``build_plan``)
+        self.layers = nn.ModuleList(
+            DecoderBlock(cfg, dt, dev,
+                         "moe" if cfg.is_moe_layer(i) else "dense")
+            for i in range(cfg.num_layers))
 
     # ------------------------------------------------------------------
     def leaves(self):
@@ -164,8 +209,13 @@ class DecoderLM(nn.Module):
         return x @ self.head
 
     def _mlp(self, blk, x):
+        """The layer's MLP half: norm, dense MLP or experts, residual.  The
+        MoE aux loss is dropped (serving; training will read it)."""
         h = L.rms_norm(x, blk.mlp_norm, self.cfg.norm_eps)
-        return x + L.mlp_apply(blk, h)
+        if blk.mlp == "moe":
+            y, _ = L.moe_apply(self.cfg, blk, h, impl=self.moe_impl)
+            return x + y
+        return x + L.dense_mlp_apply(self.cfg, blk, h)
 
     def _layer_fwd(self, blk, x, positions):
         cfg = self.cfg

@@ -17,7 +17,6 @@ copy-on-write guard, the index holds no references, and block-table entry
 """
 from __future__ import annotations
 
-import dataclasses
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
@@ -26,6 +25,7 @@ import torch
 
 from repro_torch.core.descriptor import NgramSketchDescriptor
 from repro_torch.core.hash_cache import content_hash
+from repro_torch.core.layer_reuse import SemOffsetEntry
 from repro_torch.core.policies import EvictionPolicy
 from repro_torch.core.semantic_cache import SemanticCache
 from repro_torch.obs.metrics import MetricsRegistry
@@ -121,23 +121,6 @@ class PagedStats:
 
     def as_dict(self) -> dict:
         return {f: c.value for f, c in self._counters.items()}
-
-
-@dataclasses.dataclass
-class SemOffsetEntry:
-    """One per-offset approximate index: a ``SemanticCache`` and its
-    current state, updated together (the reference's
-    ``core/layer_reuse.py::SemOffsetEntry``)."""
-
-    cache: SemanticCache
-    state: object
-
-    def lookup(self, desc: torch.Tensor):
-        self.state, res = self.cache.lookup(self.state, desc)
-        return res
-
-    def insert(self, desc: torch.Tensor, payload: torch.Tensor) -> None:
-        self.state = self.cache.insert(self.state, desc, payload)
 
 
 class PagedKVCache:

@@ -19,12 +19,14 @@ sums its scores in another order than the plain version (a lookup table
 per subspace): scores within 1e-4; probed lists and indices equal except
 on rows whose plain scores lie closer than 1e-5, but not equal, where the
 order is decided.  Its inputs and that check are ``chip_smoke.py``'s, so
-the smoke run and these tests hold the kernel to one rule.
+the smoke run and these tests hold the kernel to one rule; so is the rule
+for K5's decode at the scale granite-20b's serving path gives it
+(``path_agree``: within 2e-2 of the plain version run in fp32).
 """
 import pytest
 import torch
 
-from chip_smoke import ivf_inputs, ivf_pq_check
+from chip_smoke import ivf_inputs, ivf_pq_check, path_agree
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention.kernel import TILE, decode_plan
@@ -425,6 +427,51 @@ def test_paged_attention_run_to_run(gen, B, C, dtype):
     assert torch.equal(a, b)
 
 
+# the new serving shapes: granite-20b's multi-query attention (48 query
+# heads on 1 KV head, head_dim 128: decode on the bf16 mma route),
+# granite-moe-3b-a800m's (24 on 8, head_dim 64), qwen2-72b's (64 on 8, 128)
+FAMILIES = {"granite-20b": (48, 1, 128), "granite-moe": (24, 8, 64),
+            "qwen2-72b": (64, 8, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("C", [1, 128])
+def test_paged_attention_model_shapes(gen, C, family, dtype):
+    """K5 at decode (B = 8, C = 1) and on a B = 8 prefill chunk of 128 at
+    each family's heads, beside an idle row, one page shared."""
+    H, K, D = FAMILIES[family]
+    lens = [64, 96, 200, 300, 131, 17, 40, 0]
+    q, kp, vp, bt, ln = _paged_rows(gen, lens, C, H // K, D, dtype, K=K,
+                                    idle=(7,))
+    bt[1, :4] = bt[0, :4]
+    _paged_check(q, kp, vp, bt, ln, idle=(7,))
+
+
+def test_paged_attention_mqa_decode_at_path_scale(gen):
+    """K5's decode at granite-20b's heads (G = 48, the bf16 mma route) on
+    inputs at the scale its serving path gives it: logits of unit spread
+    and |V| about 5, at the path's lengths.  There the plain version in
+    bf16, which rounds the logits to bf16 as the reference does, lies
+    about 2e-2 from its own fp32 result, so the launch is held as
+    ``chip_smoke.py`` holds every attention launch of a serving path
+    (``path_agree``): within 2e-2 of the plain version run in fp32 on the
+    same values, and nearer to it than the bf16 plain version is."""
+    lens = [185, 137, 122, 261, 277, 98, 166, 187]
+    q, kp, vp, bt, ln = _paged_rows(gen, lens, 1, 48, 128, torch.float32,
+                                    K=1)
+    q, kp, vp = ((s * x).to(torch.bfloat16)
+                 for s, x in ((2.0, q), (2.0, kp), (5.0, vp)))
+    n0 = LAUNCHES["paged_attention"]
+    out = paged_attention(q, kp, vp, bt, ln)
+    assert LAUNCHES["paged_attention"] == n0 + 1
+    rep = path_agree(torch, "paged_attention", out,
+                     lambda *a: paged_attention(*a, impl="ref"),
+                     (q, kp, vp, bt, ln), shared=(1, 2))
+    assert rep["max_abs_err"] < rep["plain_max_abs_err"], rep
+    assert rep["plain_max_abs_err"] > 1e-2, rep
+
+
 def _flash(gen, B, S, H, K, D, dtype):
     return [torch.randn(B, S, n, D, generator=gen, device="cuda").to(dtype)
             for n in (H, K, K)]
@@ -446,6 +493,21 @@ def test_flash_attention(gen, S, window, G, D, dtype):
     ref = flash_attention(q, k, v, window=window, impl="ref")
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("S", [77, 320, 512])
+def test_flash_attention_model_shapes(gen, S, family, dtype):
+    """K8 at each family's heads: G = 48 (a 128-row tile spans 2 2/3
+    positions), G = 3 and G = 8, over prompt lengths of the serving waves."""
+    H, K, D = FAMILIES[family]
+    q, k, v = _flash(gen, 2, S, H, K, D, dtype)
+    out = flash_attention(q, k, v)
+    ref = flash_attention(q, k, v, impl="ref")
+    torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
 

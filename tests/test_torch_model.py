@@ -1,11 +1,15 @@
-"""PyTorch port of the dense decoder vs the JAX ``DecoderLM`` (CPU, fp32).
+"""PyTorch port of the decoder vs the JAX ``DecoderLM`` (CPU, fp32).
 
 Both packages run the same weights (the converter moves them across) on
 the same seeded tokens: ``coic-paper`` (MHA, untied), the reduced
-``llama3.2-1b`` (GQA, tied embeddings) and, on the slotted path, the
-reduced ``h2o-danube3-4b`` (GQA, sliding window 16: a ring cache).
-Logits and cache state within ``atol=1e-4, rtol=1e-4``; greedy tokens
-exact.  Configs compare field for field with the reference's.
+``llama3.2-1b`` (GQA, tied embeddings), the reduced ``granite-20b``
+(multi-query) and its ``gelu48`` variant (the GELU MLP, 48 query heads on
+1 KV head), the reduced ``qwen2-72b`` (QKV biases, drawn at random), the
+reduced ``granite-moe-3b-a800m`` (MoE, tied) under both ``moe_impl``
+``dense`` and ``dropless`` and, on the slotted path, the reduced
+``h2o-danube3-4b`` (GQA, sliding window 16: a ring cache).  Logits and
+cache state within ``atol=1e-4, rtol=1e-4``; greedy tokens exact.
+Configs compare field for field with the reference's.
 """
 import dataclasses
 
@@ -23,18 +27,36 @@ from repro_torch.models.convert import params_from_jax, params_to_numpy
 from torch_twins import twin
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-MODELS = [("coic-paper", False), ("llama3.2-1b", True)]
+
+
+def _case(name, reduced, variant="", moe_impl=None):
+    tag = "".join(f"-{x}" for x in (variant, moe_impl) if x)
+    return pytest.param(name, reduced, variant, moe_impl,
+                        id=f"{name}-{reduced}{tag}")
+
+
+CASE = "name,reduced,variant,moe_impl"
+MODELS = [_case("coic-paper", False), _case("llama3.2-1b", True),
+          _case("granite-20b", True), _case("granite-20b", True, "gelu48"),
+          _case("qwen2-72b", True),
+          _case("granite-moe-3b-a800m", True, moe_impl="dense"),
+          _case("granite-moe-3b-a800m", True, moe_impl="dropless")]
 # the slotted path also serves sliding-window models (paged KV refuses them)
-SLOTTED = MODELS + [("h2o-danube3-4b", True)]
+SLOTTED = MODELS + [_case("h2o-danube3-4b", True)]
 INVALID = 2 ** 30
+PORTED = ["coic-paper", "llama3.2-1b", "h2o-danube3-4b", "granite-20b",
+          "qwen2-72b", "granite-moe-3b-a800m"]
 
 
 def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    """Field values, sub-configs (``MoEConfig``, ...) compared by their
+    own fields: the two packages' dataclasses are different types."""
+    return {f.name: (_fields(v) if dataclasses.is_dataclass(v) else v)
+            for f in dataclasses.fields(cfg)
+            for v in (getattr(cfg, f.name),)}
 
 
-@pytest.mark.parametrize("name", ["coic-paper", "llama3.2-1b",
-                                  "h2o-danube3-4b"])
+@pytest.mark.parametrize("name", PORTED)
 def test_configs_equal_reference(name):
     from repro.configs import reduced_config
     assert _fields(torch_get_config(name)) == _fields(get_config(name))
@@ -50,25 +72,25 @@ def test_unported_config_and_missing_gpu_raise():
             build_model(torch_get_config("coic-paper"))
 
 
-@pytest.mark.parametrize("name,reduced", SLOTTED)
-def test_converter_round_trips(name, reduced):
-    _, _, jparams, tmodel = twin(name, reduced)
+@pytest.mark.parametrize(CASE, SLOTTED)
+def test_converter_round_trips(name, reduced, variant, moe_impl):
+    _, _, jparams, tmodel = twin(name, reduced, variant, moe_impl)
     flat = {k: np.asarray(v) for k, v in jparams.items()}
     back = params_to_numpy(tmodel)
     assert set(back) == set(flat)
     for k in flat:
         np.testing.assert_array_equal(back[k], flat[k])
     # and the other way: port weights -> reference layout -> a fresh port
-    fresh = build_model(tmodel.cfg, device="cpu")
+    fresh = build_model(tmodel.cfg, device="cpu", moe_impl=moe_impl)
     params_from_jax(back, fresh)
     for (n, l, o, a, _), (_, _, o2, a2, _) in zip(tmodel.leaves(),
                                                   fresh.leaves()):
         assert torch.equal(getattr(o, a), getattr(o2, a2)), (n, l)
 
 
-@pytest.mark.parametrize("name,reduced", SLOTTED)
-def test_forward_and_hidden_match(name, reduced):
-    cfg, jm, jp, tm = twin(name, reduced)
+@pytest.mark.parametrize(CASE, SLOTTED)
+def test_forward_and_hidden_match(name, reduced, variant, moe_impl):
+    cfg, jm, jp, tm = twin(name, reduced, variant, moe_impl)
     jfwd = jax.jit(jm.forward)
     jhid = jax.jit(jm.forward_hidden, static_argnames=("num_layers",))
     # 37 positions: past h2o's reduced window of 16
@@ -90,11 +112,13 @@ def _close_cache(tc, jc):
 
 
 @pytest.mark.parametrize("attn_impl", ["gather", "ref"])
-@pytest.mark.parametrize("name,reduced", MODELS)
-def test_paged_chunk_and_decode_match(name, reduced, attn_impl):
+@pytest.mark.parametrize(CASE, MODELS)
+def test_paged_chunk_and_decode_match(name, reduced, variant, moe_impl,
+                                      attn_impl):
     """A width-padded paged chunk (one row mid-table, one pad row), then two
-    greedy decode steps, through both attention reads."""
-    cfg, jm, jp, tm = twin(name, reduced)
+    greedy decode steps, through both attention reads.  The pad row and
+    the idle decode row take MoE capacity as in the reference."""
+    cfg, jm, jp, tm = twin(name, reduced, variant, moe_impl)
     rng = np.random.default_rng(1)
     P, page = 10, 4
     bt = np.array([[0, 1, 2, 3], [4, 5, 6, INVALID], [INVALID] * 4],
@@ -131,11 +155,11 @@ def test_paged_chunk_and_decode_match(name, reduced, attn_impl):
         tok = np.asarray(jnp.argmax(jl, -1), np.int32)
 
 
-@pytest.mark.parametrize("name,reduced", SLOTTED)
-def test_dense_prefill_and_decode_match(name, reduced):
+@pytest.mark.parametrize(CASE, SLOTTED)
+def test_dense_prefill_and_decode_match(name, reduced, variant, moe_impl):
     """The slotted-cache prefill + decode that ``generation_cloud_fn``
     runs: logits, cache and greedy tokens."""
-    cfg, jm, jp, tm = twin(name, reduced)
+    cfg, jm, jp, tm = twin(name, reduced, variant, moe_impl)
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
     jdecode = jax.jit(jm.decode_step)

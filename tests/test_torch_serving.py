@@ -9,7 +9,9 @@ prefill-token counts, ``stats()["kv"]``, hit counts, dispatch counters
 and the ladder block must be equal.  The slotted cache (``kv_page=0``)
 runs the same stream with bucketed and with chunked admission, and the
 reduced ``h2o-danube3-4b`` (a sliding-window ring) runs prompts longer
-than its window in equal-length runs; both with the same checks.
+than its window in equal-length runs, and the reduced
+``granite-moe-3b-a800m`` (``dropless`` MoE) runs the paged pool with
+chunks that overflow an expert; all with the same checks.
 """
 import numpy as np
 import pytest
@@ -131,6 +133,92 @@ def test_swa_engine_matches_jax():
     assert ts["dispatches"]["prefill_chunk"] == 0
     assert ts["dispatches"]["prefill"] >= 4        # runs of equal length
     assert ts["edge_hits"] >= 4 and ts["max_step_ladder"] <= 2
+
+
+def _moe_twins():
+    """The reduced granite-moe-3b-a800m on both sides with ``dropless``
+    forced, its routers leaning to expert 0 (+0.3 on its column) so that
+    the engine's chunks overflow that expert's capacity."""
+    import jax.numpy as jnp
+
+    from repro.models import build_model as jax_build
+    from repro_torch.models import build_model as torch_build
+    from repro_torch.models.convert import params_from_jax
+    cfg, jm, jp, tm = twin("granite-moe-3b-a800m", True, "", "dropless")
+    jp = dict(jp)
+    jp["blocks/0/moe/router"] = jp["blocks/0/moe/router"].at[..., 0].add(0.3)
+    tm = torch_build(tm.cfg, device="cpu", moe_impl="dropless")
+    params_from_jax({k: np.asarray(v) for k, v in jp.items()}, tm)
+    jm = jax_build(jm.cfg, moe_impl="dropless")
+    assert jm.moe_impl == tm.moe_impl == "dropless"
+    return cfg, jm, {k: jnp.asarray(v) for k, v in jp.items()}, tm
+
+
+@pytest.mark.parametrize("attn_impl", ["gather", "paged"])
+def test_moe_engine_matches_jax(attn_impl, monkeypatch):
+    """The reduced granite-moe (``dropless``) on the paged pool behind the
+    CoIC front: width-padded chunks, decode batches with idle rows
+    (max_batch 4; wave 2 leaves rows idle), pad and idle rows taking
+    capacity as in the reference.  Tokens, sources and ``stats()``
+    equal, and some assignment of the port's run was dropped."""
+    from repro_torch.models import layers as TL
+    cfg, jm, jp, tm = _moe_twins()
+    drops = []
+    dropless = TL.moe_apply_dropless
+
+    def counted(cfg_, w, x, *a):
+        N = x.shape[0] * x.shape[1]
+        _, ids, _ = TL.moe_router(x.reshape(N, -1), w.router,
+                                  cfg_.moe.top_k)
+        load = np.bincount(ids.reshape(-1).numpy(),
+                           minlength=cfg_.moe.num_experts)
+        drops.append(int(np.maximum(load - TL.moe_capacity(N, cfg_),
+                                    0).sum()))
+        return dropless(cfg_, w, x, *a)
+    monkeypatch.setattr(TL, "moe_apply_dropless", counted)
+    kw = dict(max_batch=4, max_len=96, max_new_tokens=6, kv_page=16,
+              prefill_chunk=32, attn_impl=attn_impl)
+    je = JServe(jm, jp, JServing(coic=JCoIC(capacity=64, threshold=0.98),
+                                 **kw))
+    te = TServe(tm, TServing(coic=TCoIC(capacity=64, threshold=0.98), **kw),
+                device="cpu")
+    for wave in _waves(cfg.vocab_size, 7, 2):
+        for p in wave:
+            assert je.submit(p) == te.submit(p)
+        je.run_until_drained()
+        te.run_until_drained()
+    ts = _compare(je, te)
+    assert ts["edge_hits"] >= 4 and ts["prefill_tokens"]["shared"] > 0
+    assert ts["dispatches"]["prefill_chunk"] > 0
+    assert sum(drops) > 0, drops
+
+
+def test_moe_descriptor_depends_on_its_batch_as_in_the_reference():
+    """An MoE model's prefix descriptor depends on the prompts batched with
+    it: the dropless capacity is the call's, so a prompt's assignments
+    drop differently alone and in a batch of four.  The reference does the
+    same (a fault of the design, not of the port: ROADMAP Queue 3); in
+    each batch the port's descriptor is the reference's."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.core.descriptor import PrefixDescriptor as JPrefix
+    from repro_torch.core.descriptor import PrefixDescriptor as TPrefix
+    cfg, jm, jp, tm = _moe_twins()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 40, 25, 33)]
+    first = []
+    for batch in (prompts[:1], prompts):
+        toks = np.full((len(batch), 40), -1, np.int32)
+        for i, p in enumerate(batch):
+            toks[i, :len(p)] = p
+        j = np.asarray(JPrefix(jm, k_layers=2)(jp, jnp.asarray(toks)))
+        t = TPrefix(tm, k_layers=2)(torch.as_tensor(toks)).numpy()
+        np.testing.assert_allclose(t, j, atol=1e-5, rtol=1e-5)
+        first.append((j[0], t[0]))
+    (j1, t1), (j4, t4) = first
+    assert np.abs(j1 - j4).max() > 1e-3 and np.abs(t1 - t4).max() > 1e-3
 
 
 def test_swa_engine_refuses_paged_kv():

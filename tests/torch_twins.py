@@ -15,18 +15,39 @@ from repro_torch.models import build_model as torch_build
 from repro_torch.models.convert import params_from_jax
 
 
+# named variants of a config: fields replaced on both sides after
+# ``reduced_config`` (which keeps neither mlp_kind nor the head counts)
+VARIANTS = {
+    # granite-20b's GELU MLP and its multi-query grouping, 48 query heads
+    # on 1 KV head, at the reduced widths
+    "gelu48": dict(mlp_kind="gelu", num_heads=48, num_kv_heads=1),
+}
+# zero-initialised bias leaves, drawn at random in a twin so that the
+# parity tests exercise them
+BIASES = ("/attn/bq", "/attn/bk", "/attn/bv", "/mlp/b_in", "/mlp/b_out")
+
+
 @functools.lru_cache(maxsize=None)
-def twin(name: str, reduced: bool = False):
+def twin(name: str, reduced: bool = False, variant: str = "",
+         moe_impl: str = None):
     """(jax cfg, jax model, jax params, torch model) for config ``name``
-    (``reduced_config`` of it when ``reduced``), float32."""
+    (``reduced_config`` of it when ``reduced``, then ``VARIANTS[variant]``),
+    float32, both models on the same ``moe_impl`` (None: the reference's
+    rule).  Bias leaves are random (seed 0) rather than zeros."""
     jcfg, tcfg = get_config(name), torch_get_config(name)
     if reduced:
         jcfg, tcfg = reduced_config(jcfg), torch_reduced_config(tcfg)
-    jcfg = dataclasses.replace(jcfg, dtype="float32")
-    tcfg = dataclasses.replace(tcfg, dtype="float32")
-    jmodel = jax_build(jcfg)
+    kw = dict(VARIANTS[variant]) if variant else {}
+    jcfg = dataclasses.replace(jcfg, dtype="float32", **kw)
+    tcfg = dataclasses.replace(tcfg, dtype="float32", **kw)
+    jmodel = jax_build(jcfg, moe_impl=moe_impl)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tmodel = torch_build(tcfg, device="cpu")
+    rng = np.random.default_rng(0)
+    for k in sorted(jparams):
+        if k.endswith(BIASES):
+            jparams[k] = jax.numpy.asarray(0.1 * rng.standard_normal(
+                jparams[k].shape), jparams[k].dtype)
+    tmodel = torch_build(tcfg, device="cpu", moe_impl=moe_impl)
     params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, tmodel)
     return jcfg, jmodel, jparams, tmodel
 
