@@ -230,10 +230,12 @@ _ALIASES = {
 }
 
 
-# configurations this package carries a copy of; the rest of the zoo needs
-# the model families of ROADMAP.md Queue 1 item 13
+# configurations this package carries a copy of; whisper-small and
+# llava-next-34b need the encoder-decoder and the image/audio front ends
+# (ROADMAP.md Queue 1 item 13)
 PORTED_CONFIGS = ("coic_paper", "llama32_1b", "h2o_danube3_4b", "granite_20b",
-                  "qwen2_72b", "granite_moe_3b_a800m")
+                  "qwen2_72b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b",
+                  "mamba2_2p7b", "jamba_v01_52b")
 
 
 def get_config(name: str) -> ModelConfig:

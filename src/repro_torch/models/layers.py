@@ -1,11 +1,12 @@
-"""Layer primitives of the dense decoder path, as plain functions on tensors.
+"""Layer primitives of the decoder, as plain functions on tensors.
 
-The port of the dense part of ``repro/models/layers.py``: RMSNorm,
+The port of ``repro/models/layers.py``: RMSNorm,
 rotate-half RoPE, the attention mask (causal, sliding window, cache
 fill), GQA attention over a mask (the plain path of chunked prefill and
 the gathered paged view), causal attention of a full sequence through
 the flash-attention kernel (K8), the attention projections in the
-reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)), the
+reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)), MLA
+(DeepSeek-V2's latent attention, plain PyTorch as in the reference), the
 dense MLPs (gated SiLU, and the two-matrix GELU with biases) and the
 mixture of experts (top-k softmax router; ``dense`` one-hot dispatch and
 ``dropless`` capacity buffers).  ``init_leaf`` copies the reference's
@@ -136,6 +137,87 @@ def attention_qkv(cfg, blk, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attention_out(blk, attn: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshe,hed->bsd", attn, blk.wo)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention).  The reference computes it
+# with einsums outside any Pallas kernel (its paged and flash kernels are
+# GQA-shaped), so the port runs it as plain PyTorch on every device.
+# ---------------------------------------------------------------------------
+
+
+# Sequences at or above this length take the q-chunked path of
+# ``mla_attention``, so the (Sq, Sk) logits never materialise in full
+CHUNKED_ATTN_THRESHOLD = 8192
+CHUNK_Q = 1024
+
+
+def mla_specs(cfg) -> dict:
+    """Shapes of the MLA leaves by reference suffix (under "attn/")."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    return {"wq": (D, H, dn + dr), "w_dkv": (D, r), "w_krope": (D, dr),
+            "kv_norm": (r,), "w_uk": (r, H, dn), "w_uv": (r, H, dv),
+            "wo": (H, dv, D)}
+
+
+def mla_latent(cfg, blk, x: torch.Tensor, positions: torch.Tensor):
+    """The cached quantities: the normalised latent c_kv (B, S, r) and
+    the shared, rotated k_rope (B, S, dr)."""
+    c_kv = torch.einsum("bsd,dr->bsr", x, blk.w_dkv)
+    c_kv = rms_norm(c_kv, blk.kv_norm, cfg.norm_eps)
+    k_rope = torch.einsum("bsd,dr->bsr", x, blk.w_krope)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_attention(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
+                  k_rope: torch.Tensor, q_positions: torch.Tensor, *,
+                  mask: Optional[torch.Tensor] = None,
+                  k_positions: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """MLA core.  x: (B, Sq, D) query-side activations; c_kv / k_rope
+    cover the whole key side (B, Sk, r) / (B, Sk, dr).  Either an
+    explicit ``mask`` (B, Sq, Sk) (chunks and decode) or ``k_positions``
+    for a causal mask, built per block of ``CHUNK_Q`` queries once
+    max(Sq, Sk) reaches ``CHUNKED_ATTN_THRESHOLD``.  Scale 1/sqrt(dn +
+    dr); the -1e30 fill before the fp32 softmax; probabilities cast to
+    v's dtype, as in the reference."""
+    m = cfg.mla
+    H = cfg.num_heads
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = torch.einsum("bsd,dhe->bshe", x, blk.wq)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, q_positions, cfg.rope_theta)
+    k_nope = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uk)   # (B,Sk,H,dn)
+    v = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uv)        # (B,Sk,H,dv)
+    scale = 1.0 / np.sqrt(dn + dr)
+
+    def attend(qn, qr, msk):
+        logits = (torch.einsum("bshe,bthe->bhst", qn, k_nope)
+                  + torch.einsum("bshe,bte->bhst", qr, k_rope)
+                  ).float() * scale
+        logits = torch.where(msk[:, None, :, :], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bthe->bshe", probs, v)
+
+    Sq, Sk = x.shape[1], c_kv.shape[1]
+    if mask is not None:
+        attn = attend(q_nope, q_rope, mask)
+    elif (max(Sq, Sk) >= CHUNKED_ATTN_THRESHOLD and Sq > CHUNK_Q
+          and Sq % CHUNK_Q == 0):
+        attn = torch.cat([
+            attend(q_nope[:, i:i + CHUNK_Q], q_rope[:, i:i + CHUNK_Q],
+                   attention_mask(q_positions[:, i:i + CHUNK_Q],
+                                  k_positions, causal=True))
+            for i in range(0, Sq, CHUNK_Q)], dim=1)
+    else:
+        attn = attend(q_nope, q_rope,
+                      attention_mask(q_positions, k_positions, causal=True))
     return torch.einsum("bshe,hed->bsd", attn, blk.wo)
 
 

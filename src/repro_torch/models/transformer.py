@@ -1,42 +1,58 @@
-"""Decoder-only LM, attention families — the port of
-``repro/models/transformer.py``.
+"""Decoder-only LM — the port of ``repro/models/transformer.py``.
 
-``DecoderLM`` is an ``nn.Module`` holding one ``DecoderBlock`` per layer,
-with every weight in the reference's layout (``wq`` (D, H, Dh), ``wo``
-(H, Dh, D), ...), so ``models/convert.py`` moves weights across by name.
-Attention is GQA (MQA included), full or sliding-window, with optional
-QKV biases; each layer's MLP is dense (gated SiLU or the two-matrix GELU,
-by ``cfg.mlp_kind``) or a mixture of experts (``moe_impl`` ``dense`` |
-``dropless``; the reference's rule picks ``dropless`` from d_model 1024).
-MLA, SSM, encoder-decoder and image/audio front ends raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 13), as do MoE layouts
-the reference splits into several segments (leading dense layers, a
-period above 1).
+Layers are organised as in the reference, into *segments* (``build_plan``):
+a (pattern, repeats) pair where the pattern is a short tuple of sub-layer
+signatures (attention kind ``attn | mla | ssm`` x MLP kind ``dense | moe
+| none``).  Homogeneous models are one segment ``blocks``; DeepSeek's
+leading dense layer is the segment ``prefix0``; Jamba's 1:7 attention:
+Mamba interleave with MoE every other layer is one 8-layer pattern
+repeated.  ``DecoderLM`` is an ``nn.Module`` holding one ``DecoderBlock``
+per layer, built from its signature, with every weight in the
+reference's layout (``wq`` (D, H, Dh), ``wo`` (H, Dh, D), ...) and named
+``{segment}/{position}/{suffix}``; a segment that repeats stacks its
+leaves along a leading axis in the reference (``models/convert.py`` moves
+weights across by name).  Attention is GQA (MQA included), full or
+sliding-window, with optional QKV biases, or DeepSeek's MLA; SSM layers
+are Mamba-2 SSD blocks (``models/ssm.py``); each MLP is dense (gated SiLU
+or the two-matrix GELU, by ``cfg.mlp_kind``), a mixture of experts
+(``moe_impl`` ``dense`` | ``dropless``; the reference's rule picks
+``dropless`` from d_model 1024) or none.  Encoder-decoder models and the
+image/audio front ends raise ``NotImplementedError`` (ROADMAP.md Queue 1
+item 13).
 
-``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the attention of
-full sequences (``forward``, ``forward_hidden``, ``prefill``: the
-flash-attention kernel K8) and of slotted decode steps (the flash-decode
-kernel K7), or their plain versions; ``auto`` launches the kernels on
-CUDA tensors.  The reference reserves the switch (``attention_impl``) and
-runs XLA attention whatever its value.
+``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the GQA
+attention of full sequences (``forward``, ``forward_hidden``,
+``prefill``: the flash-attention kernel K8) and of slotted decode steps
+(the flash-decode kernel K7), or their plain versions; ``auto`` launches
+the kernels on CUDA tensors.  The reference reserves the switch
+(``attention_impl``) and runs XLA attention whatever its value.  MLA and
+SSM layers are plain PyTorch: the reference computes them with einsums,
+outside any Pallas kernel.
 
-The KV cache is a flat dict of stacked leaves keyed like the reference
-(``blocks/0/k``: (layers, B, Sk, K, Dh) slotted, or (layers, P, page, K,
-Dh) as a paged pool).  A sliding-window model keeps a ring of Sk =
-min(window, max_len) slots, slot = position % Sk; ``prefill`` rotates
-the last Sk positions into that order and ``decode_step`` attends over
-the first min(length + 1, Sk) slots, which is exactly the reference's
-slot mask (valid slots are a prefix, and a ring no longer than the window
-makes the window clause hold by itself).  Where JAX returned a new cache,
-``prefill_chunk`` and ``decode_step`` write the caller's leaves IN PLACE
-and hand the same dict back.  JAX drops out-of-bounds scatters (the
-INVALID page sink, pad tokens); PyTorch raises, so each dispatch computes
-its kept write targets once (one host sync) and writes only those.  JAX
-clamps out-of-bounds gathers; the gathered view (``paged_gather_view``)
-clamps INVALID entries to page P - 1 explicitly.
+The KV cache is a flat dict of leaves keyed like the reference, one per
+(segment, position), stacked over the segment's repeats: ``{base}/k``,
+``{base}/v`` (R, B, Sk, K, Dh) for attention, ``{base}/c_kv`` (R, B, Sk,
+r) and ``{base}/k_rope`` (R, B, Sk, dr) for MLA's latent,
+``{base}/conv`` (R, B, W-1, conv_dim) and ``{base}/state`` (R, B, H, P,
+N, fp32) for SSM; as a paged pool the seq-indexed leaves are (R, P,
+page, ...) and recurrent ones refuse to page.  A sliding-window model
+keeps a ring of Sk = min(window, max_len) slots, slot = position % Sk;
+``prefill`` rotates the last Sk positions into that order and
+``decode_step`` attends over the first min(length + 1, Sk) slots, which
+is exactly the reference's slot mask (valid slots are a prefix, and a
+ring no longer than the window makes the window clause hold by itself).
+Where JAX returned a new cache, ``prefill_chunk`` and ``decode_step``
+write the caller's leaves IN PLACE and hand the same dict back.  JAX
+drops out-of-bounds scatters (the INVALID page sink, pad tokens);
+PyTorch raises, so each dispatch computes its kept write targets once
+(one host sync) and writes only those.  JAX clamps out-of-bounds
+gathers; the gathered view (``paged_gather_view``) clamps INVALID
+entries to page P - 1 explicitly.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -48,10 +64,74 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_gather_view)
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 INVALID_PAGE = 2 ** 30
 
-# reference param name suffix (under "blocks/0/") -> (DecoderBlock attr, init)
+# ---------------------------------------------------------------------------
+# Layer plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayer:
+    kind: str                        # attn | mla | ssm
+    mlp: str                         # dense | moe | none
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    name: str
+    pattern: Tuple[SubLayer, ...]
+    repeats: int
+
+
+def build_plan(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    """The reference's plan: a ``prefix{i}`` segment per leading dense
+    layer of an MoE model, then one ``blocks`` segment whose pattern is
+    the lcm of the MoE and attention periods (one layer when the rest
+    does not divide by it)."""
+    def sig(i: int) -> SubLayer:
+        kind = cfg.layer_kind(i)
+        if kind == "attn" and cfg.mla is not None:
+            kind = "mla"
+        if cfg.family == "ssm":
+            mlp = "none"
+        elif cfg.is_moe_layer(i):
+            mlp = "moe"
+        else:
+            mlp = "dense"
+        return SubLayer(kind, mlp)
+
+    sigs = [sig(i) for i in range(cfg.num_layers)]
+    prefix = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    period = 1
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.expert_layer_period)
+    if cfg.family == "hybrid" and cfg.attn_layer_period:
+        period = math.lcm(period, cfg.attn_layer_period)
+
+    segments = []
+    for i in range(prefix):
+        segments.append(Segment(f"prefix{i}", (sigs[i],), 1))
+    tail = sigs[prefix:]
+    if len(tail) % period != 0:
+        period = 1  # fall back to per-layer pattern check
+    pattern = tuple(tail[:period])
+    repeats = len(tail) // period
+    for r in range(repeats):
+        if tuple(tail[r * period:(r + 1) * period]) != pattern:
+            raise ValueError(f"{cfg.name}: layer pattern is not periodic")
+    segments.append(Segment("blocks", pattern, repeats))
+    return tuple(segments)
+
+
+# ---------------------------------------------------------------------------
+# Weights
+# ---------------------------------------------------------------------------
+
+# reference param name suffix (under "{segment}/{position}/") ->
+# (DecoderBlock attr, init); a block carries the leaves of its signature
 BLOCK_LEAVES = {
     "attn_norm": ("attn_norm", "ones"),
     "attn/wq": ("wq", "normal"),
@@ -61,6 +141,13 @@ BLOCK_LEAVES = {
     "attn/bq": ("bq", "zeros"),
     "attn/bk": ("bk", "zeros"),
     "attn/bv": ("bv", "zeros"),
+    "attn/w_dkv": ("w_dkv", "normal"),
+    "attn/w_krope": ("w_krope", "normal"),
+    "attn/kv_norm": ("kv_norm", "ones"),
+    "attn/w_uk": ("w_uk", "normal"),
+    "attn/w_uv": ("w_uv", "normal"),
+    "ssm_norm": ("ssm_norm", "ones"),
+    **{f"ssm/{k}": v for k, v in S.SSM_LEAVES.items()},
     "mlp_norm": ("mlp_norm", "ones"),
     "mlp/w_gate": ("w_gate", "normal"),
     "mlp/w_up": ("w_up", "normal"),
@@ -83,53 +170,60 @@ TOP_LEAVES = {
     "final_norm/w": ("final_norm", "ones"),
     "head/w": ("head", "normal"),
 }
+# each attention kind's cache leaves, by suffix under "{segment}/{position}/"
+CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"),
+                "ssm": ("conv", "state")}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    m = cfg.moe
-    unported = {"mla": cfg.mla is not None,
-                "ssm": cfg.ssm is not None or cfg.family in ("ssm", "hybrid"),
-                "encdec": cfg.encdec is not None or cfg.family == "encdec",
+    unported = {"encdec": cfg.encdec is not None or cfg.family == "encdec",
                 "image/audio front end": bool(cfg.num_image_patches
-                                              or cfg.audio_frontend),
-                "moe layer pattern": m is not None and (
-                    m.first_dense_layers > 0 or m.expert_layer_period != 1
-                    or m.expert_layer_offset != 0)}
+                                              or cfg.audio_frontend)}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP.md Queue "
-            "1 item 13, other model families); the port runs GQA attention "
-            "with dense or MoE MLPs in every layer")
+            "1 item 13, other model families); the port runs decoder-only "
+            "models of GQA, MLA and SSM layers")
 
 
 class DecoderBlock(nn.Module):
-    """One layer's weights: attention, then the MLP of its kind (gated
-    SiLU, GELU with biases, or routed experts and shared experts)."""
+    """One layer's weights, by its sub-layer signature: the mixer (GQA
+    attention, MLA or an SSM block), then the MLP of its kind (gated SiLU,
+    GELU with biases, routed and shared experts, or none)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device,
-                 mlp: str):
+                 sl: SubLayer):
         super().__init__()
         D, H, K, Dh, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim, cfg.d_ff)
-        self.mlp = mlp
-        shapes = {"attn_norm": (D,), "wq": (D, H, Dh), "wk": (D, K, Dh),
-                  "wv": (D, K, Dh), "wo": (H, Dh, D), "mlp_norm": (D,)}
-        if cfg.qkv_bias:
-            shapes.update(bq=(H, Dh), bk=(K, Dh), bv=(K, Dh))
-        if mlp == "moe":
+        self.kind, self.mlp = sl.kind, sl.mlp
+        if sl.kind == "attn":
+            shapes = {"attn_norm": (D,), "wq": (D, H, Dh), "wk": (D, K, Dh),
+                      "wv": (D, K, Dh), "wo": (H, Dh, D)}
+            if cfg.qkv_bias:
+                shapes.update(bq=(H, Dh), bk=(K, Dh), bv=(K, Dh))
+        elif sl.kind == "mla":
+            shapes = {"attn_norm": (D,), **L.mla_specs(cfg)}
+        else:
+            shapes = {"ssm_norm": (D,)}
+            shapes.update({S.SSM_LEAVES[k][0]: v
+                           for k, v in S.ssm_specs(cfg).items()})
+        if sl.mlp == "moe":
             m = cfg.moe
             E, Fe = m.num_experts, m.d_ff_expert
-            shapes.update(router=(D, E), we_gate=(E, D, Fe),
+            shapes.update(mlp_norm=(D,), router=(D, E), we_gate=(E, D, Fe),
                           we_up=(E, D, Fe), we_down=(E, Fe, D))
             if m.num_shared_experts:
                 Fs = m.d_ff_shared
                 shapes.update(shared_w_gate=(D, Fs), shared_w_up=(D, Fs),
                               shared_w_down=(Fs, D))
-        elif cfg.mlp_kind == "gelu":
-            shapes.update(w_in=(D, F), b_in=(F,), w_out=(F, D), b_out=(D,))
-        else:
-            shapes.update(w_gate=(D, F), w_up=(D, F), w_down=(F, D))
+        elif sl.mlp == "dense" and cfg.mlp_kind == "gelu":
+            shapes.update(mlp_norm=(D,), w_in=(D, F), b_in=(F,),
+                          w_out=(F, D), b_out=(D,))
+        elif sl.mlp == "dense":
+            shapes.update(mlp_norm=(D,), w_gate=(D, F), w_up=(D, F),
+                          w_down=(F, D))
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=dtype, device=device),
@@ -137,7 +231,7 @@ class DecoderBlock(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM with the reference's forward / prefill /
+    """Decoder-only LM with the reference's forward / prefill /
     chunked-prefill / decode entry points."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
@@ -149,6 +243,7 @@ class DecoderLM(nn.Module):
             raise ValueError(f"attention_impl {attention_impl!r} not in "
                              "auto | cuda | ref")
         self.cfg = cfg
+        self.plan = build_plan(cfg)
         self.attention_impl = attention_impl
         # the reference's rule: the dispatch einsums of ``dense`` dominate
         # at scale, so wide models take the capacity buffers
@@ -167,24 +262,33 @@ class DecoderLM(nn.Module):
         self.final_norm = param(cfg.d_model)
         self.head = (None if cfg.tie_embeddings
                      else param(cfg.d_model, cfg.vocab_size))
-        # each layer's MLP kind: the MLP half of the reference's sub-layer
-        # signature (``build_plan``)
-        self.layers = nn.ModuleList(
-            DecoderBlock(cfg, dt, dev,
-                         "moe" if cfg.is_moe_layer(i) else "dense")
-            for i in range(cfg.num_layers))
+        # one block per layer in plan order; ``_at[i]`` is layer i's
+        # (leaf base "{segment}/{position}", repeat index, segment repeats)
+        blocks, self._at = [], []
+        for seg in self.plan:
+            for r in range(seg.repeats):
+                for pos, sl in enumerate(seg.pattern):
+                    blocks.append(DecoderBlock(cfg, dt, dev, sl))
+                    self._at.append((f"{seg.name}/{pos}", r, seg.repeats))
+        self.layers = nn.ModuleList(blocks)
+        self._recurrent = any(sl.kind == "ssm" for seg in self.plan
+                              for sl in seg.pattern)
 
     # ------------------------------------------------------------------
     def leaves(self):
-        """(reference name, layer or None, attr owner, attr, init) for every
-        weight — the one table ``init`` and ``models/convert.py`` walk."""
+        """(reference name, repeat index or None, attr owner, attr, init)
+        for every weight — the one table ``init`` and
+        ``models/convert.py`` walk.  The index is None unless the leaf's
+        segment repeats (the reference stacks it then); a name's entries
+        come in repeat order."""
         for name, (attr, init) in TOP_LEAVES.items():
             if getattr(self, attr) is not None:
                 yield name, None, self, attr, init
         for suffix, (attr, init) in BLOCK_LEAVES.items():
-            for layer, blk in enumerate(self.layers):
+            for blk, (base, r, reps) in zip(self.layers, self._at):
                 if hasattr(blk, attr):
-                    yield f"blocks/0/{suffix}", layer, blk, attr, init
+                    yield (f"{base}/{suffix}", r if reps > 1 else None, blk,
+                           attr, init)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "DecoderLM":
@@ -209,8 +313,11 @@ class DecoderLM(nn.Module):
         return x @ self.head
 
     def _mlp(self, blk, x):
-        """The layer's MLP half: norm, dense MLP or experts, residual.  The
-        MoE aux loss is dropped (serving; training will read it)."""
+        """The layer's MLP half: norm, dense MLP or experts, residual (none
+        for a pure SSM).  The MoE aux loss is dropped (serving; training
+        will read it)."""
+        if blk.mlp == "none":
+            return x
         h = L.rms_norm(x, blk.mlp_norm, self.cfg.norm_eps)
         if blk.mlp == "moe":
             y, _ = L.moe_apply(self.cfg, blk, h, impl=self.moe_impl)
@@ -218,16 +325,35 @@ class DecoderLM(nn.Module):
         return x + L.dense_mlp_apply(self.cfg, blk, h)
 
     def _layer_fwd(self, blk, x, positions):
+        """One layer over a full sequence: (x, the values its cache keeps:
+        (k, v), (c_kv, k_rope) or (conv, state))."""
         cfg = self.cfg
-        h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
-        q, k, v = L.attention_qkv(cfg, blk, h, positions)
-        attn = L.causal_attention(q, k, v, window=cfg.sliding_window,
-                                  impl=self.attention_impl)
-        x = x + L.attention_out(blk, attn)
-        return self._mlp(blk, x), (k, v)
+        if blk.kind == "ssm":
+            h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
+            y, new = S.ssm_apply(cfg, blk, h, return_state=True)
+            x = x + y
+        elif blk.kind == "mla":
+            h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+            new = L.mla_latent(cfg, blk, h, positions)
+            x = x + L.mla_attention(cfg, blk, h, *new, positions,
+                                    k_positions=positions)
+        else:
+            h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+            q, k, v = L.attention_qkv(cfg, blk, h, positions)
+            attn = L.causal_attention(q, k, v, window=cfg.sliding_window,
+                                      impl=self.attention_impl)
+            x = x + L.attention_out(blk, attn)
+            new = (k, v)
+        return self._mlp(blk, x), new
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device)[None, :].expand(B, S)
+
+    def _leaves_of(self, cache, i):
+        """Layer i's cache leaves (its repeat's row of each)."""
+        base, r, _ = self._at[i]
+        return [cache[f"{base}/{n}"][r]
+                for n in CACHE_LEAVES[self.layers[i].kind]]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -239,14 +365,28 @@ class DecoderLM(nn.Module):
             x, _ = self._layer_fwd(blk, x, positions)
         return self.unembed(x)
 
+    def _prefix_depth(self, num_layers: int) -> int:
+        """Layers that the reference's ``forward_hidden(num_layers)`` runs:
+        it takes ``num_layers`` repeats, segment by segment, and each
+        repeat runs its segment's whole pattern (jamba: 8 layers)."""
+        n, remaining = 0, num_layers
+        for seg in self.plan:
+            if remaining <= 0:
+                break
+            take = min(remaining, seg.repeats)
+            n += take * len(seg.pattern)
+            remaining -= take
+        return n
+
     @torch.no_grad()
     def forward_hidden(self, tokens: torch.Tensor, *,
                        num_layers: int) -> torch.Tensor:
-        """Embedding + the first ``num_layers`` layers: hidden (B, S, D) —
-        the CoIC descriptor-prefix path."""
+        """Embedding + the first ``num_layers`` repeats of the plan
+        (``_prefix_depth``): hidden (B, S, D) — the CoIC descriptor-prefix
+        path."""
         x = self.embed(tokens)
         positions = self._positions(*tokens.shape)
-        for blk in self.layers[:num_layers]:
+        for blk in self.layers[:self._prefix_depth(num_layers)]:
             x, _ = self._layer_fwd(blk, x, positions)
         return x
 
@@ -258,28 +398,54 @@ class DecoderLM(nn.Module):
         w = self.cfg.sliding_window
         return min(w, max_len) if w > 0 else max_len
 
+    def _leaf_specs(self, kind: str, R: int, rows: int, seq: int,
+                    paged: bool):
+        """(shape, dtype) of one (segment, position)'s leaves; ``rows`` is
+        the batch (slotted) or the page count (paged), ``seq`` the slots
+        per row or the page size."""
+        cfg = self.cfg
+        if kind == "attn":
+            if not paged:
+                seq = self._cache_len(seq)
+            shp = (R, rows, seq, cfg.num_kv_heads, cfg.head_dim)
+            return [(shp, self.dtype), (shp, self.dtype)]
+        if kind == "mla":
+            m = cfg.mla
+            return [((R, rows, seq, m.kv_lora_rank), self.dtype),
+                    ((R, rows, seq, m.qk_rope_head_dim), self.dtype)]
+        if paged:
+            raise ValueError("paged KV needs attention-family caches "
+                             f"(got {kind} sub-layer)")
+        s = cfg.ssm
+        _, H, conv_dim = S.ssm_dims(cfg)
+        return [((R, rows, s.d_conv - 1, conv_dim), self.dtype),
+                ((R, rows, H, s.head_dim, s.d_state), torch.float32)]
+
+    def _specs(self, rows: int, seq: int, paged: bool):
+        specs = {}
+        for seg in self.plan:
+            for pos, sl in enumerate(seg.pattern):
+                leaves = self._leaf_specs(sl.kind, seg.repeats, rows, seq,
+                                          paged)
+                for n, spec in zip(CACHE_LEAVES[sl.kind], leaves):
+                    specs[f"{seg.name}/{pos}/{n}"] = spec
+        return specs
+
     def cache_specs(self, batch: int, max_len: int
                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
-        """(shape, dtype) of the slotted decode cache leaves."""
-        cfg = self.cfg
-        shp = (cfg.num_layers, batch, self._cache_len(max_len),
-               cfg.num_kv_heads, cfg.head_dim)
-        return {"blocks/0/k": (shp, self.dtype),
-                "blocks/0/v": (shp, self.dtype)}
+        """(shape, dtype) of the slotted decode cache leaves; an SSM
+        ``state`` is fp32 whatever the model's dtype."""
+        return self._specs(batch, max_len, paged=False)
 
     def paged_cache_specs(self, num_pages: int, page_size: int
                           ) -> Dict[str, Tuple[tuple, torch.dtype]]:
-        """(shape, dtype) of the paged pool leaves ``(layers, num_pages,
-        page_size, K, Dh)``; page ``num_pages`` is the out-of-bounds
-        sink.  A sliding-window ring rotates by position and does not
-        page: those models raise, as in the reference."""
-        cfg = self.cfg
-        if cfg.sliding_window > 0:
+        """(shape, dtype) of the paged pool leaves ``(R, num_pages,
+        page_size, ...)``; page ``num_pages`` is the out-of-bounds sink.
+        A sliding-window ring rotates by position and a recurrent state
+        is not seq-indexed: those models raise, as in the reference."""
+        if self.cfg.sliding_window > 0:
             raise ValueError("paged KV needs linear caches (no SWA ring)")
-        shp = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-               cfg.head_dim)
-        return {"blocks/0/k": (shp, self.dtype),
-                "blocks/0/v": (shp, self.dtype)}
+        return self._specs(num_pages, page_size, paged=True)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s, dtype=d, device=self.device)
@@ -290,28 +456,31 @@ class DecoderLM(nn.Module):
                 lengths: Optional[torch.Tensor] = None):
         """Run the full prompt and build a slotted cache of ``max_len``
         positions (a ring of ``min(window, max_len)`` slots under a sliding
-        window).  Returns (last-position logits (B, V), cache, lengths);
-        with ``lengths`` (a right-padded batch) logits come from each row's
-        true last token.  A ring rotates by the padded length, so the
-        serving engine prefills sliding-window models at exact lengths."""
+        window; an SSM layer keeps its final conv and SSD states).
+        Returns (last-position logits (B, V), cache, lengths); with
+        ``lengths`` (a right-padded batch) logits come from each row's
+        true last token.  A ring rotates by the padded length and a
+        recurrent state absorbs the pads, so the serving engine prefills
+        those models at exact lengths."""
         B, S = tokens.shape
         max_len = max_len or S
         cache = self.init_cache(B, max_len)
-        kc, vc = cache["blocks/0/k"], cache["blocks/0/v"]
-        Sk = kc.shape[2]
         x = self.embed(tokens)
         positions = self._positions(B, S)
         for i, blk in enumerate(self.layers):
-            x, (k, v) = self._layer_fwd(blk, x, positions)
-            if Sk < S:
-                # ring: decode expects slot = position % Sk; the last Sk
-                # positions start at S - Sk, so rotate them into ring order
-                shift = (S - Sk) % Sk
-                kc[i] = torch.roll(k[:, -Sk:], shift, dims=1)
-                vc[i] = torch.roll(v[:, -Sk:], shift, dims=1)
-            else:
-                kc[i, :, :S] = k
-                vc[i, :, :S] = v
+            x, new = self._layer_fwd(blk, x, positions)
+            for leaf, val in zip(self._leaves_of(cache, i), new):
+                Sk = leaf.shape[1]
+                if blk.kind == "ssm":
+                    leaf.copy_(val)
+                elif Sk < S:
+                    # ring: decode expects slot = position % Sk; the last
+                    # Sk positions start at S - Sk, so rotate them into
+                    # ring order
+                    leaf.copy_(torch.roll(val[:, -Sk:], (S - Sk) % Sk,
+                                          dims=1))
+                else:
+                    leaf[:, :S] = val
         rows = torch.arange(B, device=self.device)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32,
@@ -341,10 +510,14 @@ class DecoderLM(nn.Module):
 
     def _write_targets(self, cache, positions, valid, block_table):
         """The kept (token row, leaf index...) write targets of one
-        dispatch, shared by every layer: JAX's ``mode="drop"`` scatter,
-        with the dropped targets left out.  One host sync (``nonzero``)."""
+        dispatch, shared by every seq-indexed leaf: JAX's ``mode="drop"``
+        scatter, with the dropped targets left out.  One host sync
+        (``nonzero``); None for a model with no seq-indexed leaf."""
+        leaf = next((v for k, v in cache.items()
+                     if k.endswith(("/k", "/c_kv"))), None)
+        if leaf is None:
+            return None
         B, C = positions.shape
-        leaf = cache["blocks/0/k"]
         if block_table is not None:
             P, page = leaf.shape[1], leaf.shape[2]
             pp, off = self._page_targets(block_table, positions.long(),
@@ -363,6 +536,13 @@ class DecoderLM(nn.Module):
         sel = keep.nonzero().squeeze(1)
         return sel, a[sel], b[sel]
 
+    @staticmethod
+    def _scatter(leaf, vals, targets):
+        """Write chunk values (B, C, ...) into one layer's leaf in place at
+        the kept ``targets``."""
+        sel, ia, ib = targets
+        leaf[ia, ib] = vals.reshape((-1,) + tuple(vals.shape[2:]))[sel]
+
     def _attend(self, q, ck, cv, positions, lengths, block_table, attn_impl):
         """Attention of chunk queries ``q`` (B, C, H, Dh) at ``positions``
         over one layer's (already written) cache leaves."""
@@ -378,26 +558,71 @@ class DecoderLM(nn.Module):
         return L.gqa_attention(q, ck, cv,
                                L.attention_mask(positions, kpos, causal=True))
 
-    def _cached_layers(self, x, positions, lengths, cache, valid,
-                       block_table, attn_impl):
-        """Every layer of a prefill chunk / decode step: project, write the
-        new k/v into the cache in place, attend over the cache."""
+    def _mla_cached(self, blk, h, positions, leaves, targets, block_table,
+                    slot=None):
+        """MLA over the latent cache: write the chunk's (c_kv, k_rope) in
+        place (at ``targets``, or at ``slot`` per row for a slotted decode
+        step), then attend over the whole (gathered, when paged) latent
+        with the causal mask.  MLA always gathers, as in the reference."""
         cfg = self.cfg
-        B, C, _ = x.shape
-        sel, ia, ib = self._write_targets(cache, positions, valid,
-                                          block_table)
-        kc, vc = cache["blocks/0/k"], cache["blocks/0/v"]
+        new = L.mla_latent(cfg, blk, h, positions)
+        for leaf, val in zip(leaves, new):
+            if slot is None:
+                self._scatter(leaf, val, targets)
+            else:
+                leaf[torch.arange(h.shape[0], device=h.device), slot] = \
+                    val[:, 0]
+        ckv, krope = leaves
+        if block_table is not None:
+            ckv = paged_gather_view(ckv, block_table)
+            krope = paged_gather_view(krope, block_table)
+        Sk = ckv.shape[1]
+        kpos = torch.arange(Sk, device=h.device)[None, :].expand(
+            h.shape[0], Sk)
+        mask = L.attention_mask(positions, kpos, causal=True)
+        return L.mla_attention(cfg, blk, h, ckv, krope, positions, mask=mask)
+
+    def _cached_layers(self, x, positions, lengths, cache, valid,
+                       block_table, attn_impl, decode=False):
+        """Every layer of a prefill chunk / paged decode step: project,
+        write the new k/v (latent) into the cache in place, attend over
+        the cache; an SSM layer continues from its cached states (one
+        recurrence step when ``decode``)."""
+        cfg = self.cfg
+        targets = self._write_targets(cache, positions, valid, block_table)
         for i, blk in enumerate(self.layers):
-            h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
-            q, k, v = L.attention_qkv(cfg, blk, h, positions)
-            flat = (B * C, cfg.num_kv_heads, cfg.head_dim)
-            kc[i][ia, ib] = k.reshape(flat)[sel]      # in place
-            vc[i][ia, ib] = v.reshape(flat)[sel]
-            attn = self._attend(q, kc[i], vc[i], positions, lengths,
-                                block_table, attn_impl)
-            x = x + L.attention_out(blk, attn)
-            x = self._mlp(blk, x)
+            leaves = self._leaves_of(cache, i)
+            if blk.kind == "ssm":
+                h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
+                y = self._ssm_cached(blk, h, leaves, decode)
+            elif blk.kind == "mla":
+                h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+                y = self._mla_cached(blk, h, positions, leaves, targets,
+                                     block_table)
+            else:
+                h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+                q, k, v = L.attention_qkv(cfg, blk, h, positions)
+                self._scatter(leaves[0], k, targets)          # in place
+                self._scatter(leaves[1], v, targets)
+                y = L.attention_out(blk, self._attend(
+                    q, *leaves, positions, lengths, block_table, attn_impl))
+            x = self._mlp(blk, x + y)
         return x
+
+    def _ssm_cached(self, blk, h, leaves, decode):
+        """An SSM layer from its cached (conv, state), both written back in
+        place: one recurrence step (``decode``) or the chunked scan."""
+        conv, state = leaves
+        if decode:
+            y, new_conv, new_state = S.ssm_decode_step(self.cfg, blk, h,
+                                                       conv, state)
+        else:
+            y, (new_conv, new_state) = S.ssm_apply(
+                self.cfg, blk, h, conv_state=conv, ssd_state=state.float(),
+                return_state=True)
+        conv.copy_(new_conv)
+        state.copy_(new_state)
+        return y
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, cache: dict,
@@ -414,11 +639,18 @@ class DecoderLM(nn.Module):
         ``block_table`` (B, n_pages) switches ``cache`` to the paged pool
         layout; ``attn_impl`` is ``"gather"`` (dense view of the pool) or a
         ``kernels/paged_attention`` impl (``auto`` | ``cuda`` | ``ref``)
-        reading pages in place.  Returns (last logits (B, V), cache — the
-        same dict, written in place —, new lengths).  Sliding-window ring
-        caches raise, as in the reference."""
+        reading GQA pages in place (MLA always gathers).  Returns (last
+        logits (B, V), cache — the same dict, written in place —, new
+        lengths).  Sliding-window ring caches raise, as in the reference,
+        and so do recurrent (SSM) layers given a block table or a pad
+        mask: their state would absorb the pads."""
         if self.cfg.sliding_window > 0:
             raise NotImplementedError("chunked prefill with SWA ring caches")
+        if self._recurrent and block_table is not None:
+            raise NotImplementedError("paged KV with recurrent caches")
+        if self._recurrent and widths is not None:
+            raise NotImplementedError("width-padded chunks with recurrent "
+                                      "caches")
         B, C = tokens.shape
         dev = self.device
         lengths = lengths.to(dev)
@@ -446,7 +678,8 @@ class DecoderLM(nn.Module):
         (the position of the incoming token).  Returns (logits (B, V),
         cache — written in place —, lengths + 1).  With a block table,
         INVALID rows (idle / mid-prefill) drop their write; without, the
-        slotted cache takes the token at slot ``lengths % Sk``."""
+        slotted cache takes the token at slot ``lengths % Sk``.  SSM layers
+        take one recurrence step."""
         dev = self.device
         lengths = lengths.to(dev)
         x = self.embed(tokens.to(dev))[:, None, :]
@@ -455,28 +688,40 @@ class DecoderLM(nn.Module):
             x = self._slotted_decode_layers(x, positions, lengths, cache)
         else:
             x = self._cached_layers(x, positions, lengths, cache, None,
-                                    block_table, attn_impl)
+                                    block_table, attn_impl, decode=True)
         return self.unembed(x)[:, 0], cache, lengths + 1
 
     def _slotted_decode_layers(self, x, positions, lengths, cache):
-        """Every layer of a slotted decode step: the new k/v goes to slot
-        ``lengths % Sk`` in place, then flash-decode (K7) attends over the
-        first ``min(lengths + 1, Sk)`` slots — the reference's slot mask
-        (positions ``lengths - ((lengths - slot) % Sk)`` in [0, lengths]
-        and, for a ring of Sk <= window slots, inside the window)."""
+        """Every layer of a slotted decode step.  Attention: the new k/v
+        goes to slot ``lengths % Sk`` in place, then flash-decode (K7)
+        attends over the first ``min(lengths + 1, Sk)`` slots — the
+        reference's slot mask (positions ``lengths - ((lengths - slot) %
+        Sk)`` in [0, lengths] and, for a ring of Sk <= window slots, inside
+        the window).  MLA: the latent goes to slot ``lengths % Sk``, then
+        plain attention over the slots at or before ``lengths``.  SSM: one
+        recurrence step."""
         cfg = self.cfg
-        kc, vc = cache["blocks/0/k"], cache["blocks/0/v"]
-        Sk = kc.shape[2]
         rows = torch.arange(x.shape[0], device=x.device)
-        slot = lengths.long() % Sk
-        kv_len = torch.clamp(lengths + 1, max=Sk).to(torch.int32)
         for i, blk in enumerate(self.layers):
-            h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
-            q, k, v = L.attention_qkv(cfg, blk, h, positions)
-            kc[i][rows, slot] = k[:, 0]                # in place
-            vc[i][rows, slot] = v[:, 0]
-            attn = decode_attention(q[:, 0], kc[i], vc[i], kv_len,
-                                    impl=self.attention_impl)
-            x = x + L.attention_out(blk, attn[:, None])
-            x = self._mlp(blk, x)
+            leaves = self._leaves_of(cache, i)
+            if blk.kind == "ssm":
+                h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
+                y = self._ssm_cached(blk, h, leaves, decode=True)
+            else:
+                h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+                Sk = leaves[0].shape[1]
+                slot = lengths.long() % Sk
+                if blk.kind == "mla":
+                    y = self._mla_cached(blk, h, positions, leaves, None,
+                                         None, slot=slot)
+                else:
+                    kc, vc = leaves
+                    q, k, v = L.attention_qkv(cfg, blk, h, positions)
+                    kc[rows, slot] = k[:, 0]                # in place
+                    vc[rows, slot] = v[:, 0]
+                    kv_len = torch.clamp(lengths + 1, max=Sk).to(torch.int32)
+                    attn = decode_attention(q[:, 0], kc, vc, kv_len,
+                                            impl=self.attention_impl)
+                    y = L.attention_out(blk, attn[:, None])
+            x = self._mlp(blk, x + y)
         return x

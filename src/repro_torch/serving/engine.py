@@ -13,8 +13,9 @@ Request lifecycle (one lookup ladder per engine STEP, not per request):
     admit    — EDF (or FIFO) order.  Slotted cache (``kv_page == 0``):
                queued requests with free slots prefill in ONE bucketed
                (pow2 batch, pow2 length) ``prefill`` call per step — for a
-               sliding-window model only an equal-length front run, at its
-               exact length, since a ring rotates by the padded length —
+               sliding-window or recurrent model only an equal-length
+               front run, at its exact length, since a ring rotates by the
+               padded length and a recurrent state absorbs the pads —
                and prompts longer than ``prefill_chunk`` reserve a slot and
                trickle one ``prefill_chunk`` call per step (linear caches
                only).  Paged cache (``kv_page > 0``): every queued request
@@ -35,9 +36,10 @@ ladder bound (``max_step_ladder <= 2``) stays checkable.
 The port serves both cache layouts behind any CoIC org: a cooperative
 cluster of one or more nodes, or a cross-cluster federation, with an
 optional ``ClusterMembership`` control plane that reroutes requests aimed
-at dead targets.  A sliding-window model needs the slotted cache: paged
+at dead targets.  A sliding-window model and a recurrent (SSM or
+hybrid) one need the slotted cache and exact-length prefill runs: paged
 KV raises ``ValueError``, as in the reference, and ``prefill_chunk`` is
-ignored for it.
+ignored for them.
 """
 from __future__ import annotations
 
@@ -222,14 +224,19 @@ class ServingEngine:
         self._max_step_ladder = self.metrics.gauge("engine/max_step_ladder")
 
         B = cfg.max_batch
+        # recurrent (SSM/conv) prefill states absorb right-pad tokens, and
         # sliding-window ring caches rotate by the PADDED length, so those
         # models only batch admissions of identical prompt length with no
         # length padding, never chunk, and never page
-        self._exact_prefill = model.cfg.sliding_window > 0
+        self._exact_prefill = (
+            model.cfg.sliding_window > 0
+            or any(k.endswith(("/conv", "/state"))
+                   for k in model.cache_specs(1, cfg.max_len)))
         self._paged = cfg.kv_page > 0
         if self._paged and self._exact_prefill:
             raise ValueError("kv_page > 0 needs linear attention caches "
-                             "(no sliding-window ring)")
+                             "(no SWA ring / recurrent state) and a model "
+                             "with paged_cache_specs")
         self.kv: Optional[PagedKVCache] = None
         if self._paged:
             self.kv = PagedKVCache(model, B, cfg.max_len, cfg.kv_page,
@@ -452,7 +459,8 @@ class ServingEngine:
     def _pad_prompts(self, prompts: List[np.ndarray], fill: int,
                      exact: bool = False):
         """Right-pad ``prompts`` with ``fill`` into a (pow2-B, pow2-S)
-        bucket (``exact``: no length padding — sliding-window prefill).
+        bucket (``exact``: no length padding — sliding-window and
+        recurrent prefill).
         Returns (tokens (Bb, Sb) int32, lengths (n,) int32)."""
         n = len(prompts)
         lens = np.array([len(p) for p in prompts], np.int32)
@@ -602,6 +610,7 @@ class ServingEngine:
                 m = 1
             elif self._exact_prefill:
                 # equal-length front run only: no right-pad for SWA rings
+                # or recurrent states
                 L0 = len(self.queue[0][1])
                 run = 1
                 while run < m and len(self.queue[run][1]) == L0:

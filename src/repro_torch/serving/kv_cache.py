@@ -1,8 +1,9 @@
 """KV-cache management for continuous batching.
 
 The port of ``repro/serving/kv_cache.py``.  The slotted batch cache
-(``kv_page == 0``) is one row of ``(layers, B, Sk, ...)`` leaves per slot,
-filled by ``batch_cache_insert`` / ``batch_cache_scatter`` (in place).
+(``kv_page == 0``) is one row of ``(layers, B, ...)`` leaves per slot,
+filled by ``batch_cache_insert`` / ``batch_cache_scatter`` (in place),
+which overwrite a row whole (an SSM layer's conv and state too).
 In the paged layout every seq-indexed leaf is a physical page pool
 ``(layers, P, page, ...)``
 shared by all slots through per-slot block tables (the vLLM layout).
@@ -33,8 +34,10 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 def init_batch_cache(model, batch: int, max_len: int
                      ) -> Dict[str, torch.Tensor]:
-    """Zero slotted cache leaves ``(layers, batch, Sk, K, Dh)`` on the
-    model's device (Sk = max_len, or the sliding window's ring)."""
+    """Zero slotted cache leaves on the model's device, one row per slot
+    along axis 1 (``model.cache_specs``: attention ``(R, batch, Sk, K,
+    Dh)`` with Sk = max_len or the sliding window's ring, MLA's latent
+    ``(R, batch, max_len, r)``, SSM ``conv`` / fp32 ``state``)."""
     return {k: torch.zeros(shape, dtype=dtype, device=model.device)
             for k, (shape, dtype) in model.cache_specs(batch,
                                                        max_len).items()}

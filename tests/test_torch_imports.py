@@ -2,8 +2,9 @@
 nor ``chip_smoke.py`` or the kernel benches (``scripts/*_bench.py``),
 imports JAX or anything of the JAX package
 (``repro``, ``repro.*``) or ``benchmarks``, checked on the AST; and the
-serving entry point, the attention kernels' modules, the block-reuse
-cache, the workload generators and the ported configs import in a process
+serving entry point, the attention kernels' modules, the model (its SSM
+block too), the block-reuse cache, the workload generators and the ported
+configs import in a process
 where ``jax`` cannot load."""
 import ast
 import pathlib
@@ -45,7 +46,11 @@ def test_serving_engine_imports_without_jax():
             "repro_torch.configs.h2o_danube3_4b, "
             "repro_torch.core.layer_reuse, repro_torch.data.workload, "
             "repro_torch.configs.granite_20b, repro_torch.configs.qwen2_72b, "
-            "repro_torch.configs.granite_moe_3b_a800m; print('ok')")
+            "repro_torch.configs.granite_moe_3b_a800m, "
+            "repro_torch.models.ssm, repro_torch.models.transformer, "
+            "repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.configs.mamba2_2p7b, "
+            "repro_torch.configs.jamba_v01_52b; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),

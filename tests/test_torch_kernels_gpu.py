@@ -632,6 +632,36 @@ def test_decode_attention_split_edges(gen, G, D, dtype):
                            (edge - 1, edge, edge + 1, TILE + 1, S)))
 
 
+# jamba-v0.1-52b's attention layers: 32 query heads on 8 KV heads (G = 4),
+# head_dim 128, the hybrid path's slotted cache of 1024 slots
+JAMBA = (32, 8, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(4, 256), (4, 512), (16, 512)])
+def test_flash_attention_jamba_heads(gen, B, S, dtype):
+    """K8 at jamba's heads over the hybrid path's prefill runs (4 rows of
+    256 or 512) and its descriptor batch (16 rows of 512)."""
+    H, K, D = JAMBA
+    q, k, v = _flash(gen, B, S, H, K, D, dtype)
+    out = flash_attention(q, k, v)
+    ref = flash_attention(q, k, v, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [(257,) * 4 + (513,) * 4,
+                                  (1, 272, 528, 1024, 300, 17, 513, 2)])
+def test_decode_attention_jamba_heads(gen, lens, dtype):
+    """K7 at jamba's heads over 1024 slots: the hybrid path's decode batch
+    (4 rows past a 256-token prompt, 4 past 512) and ragged rows, one
+    cache full."""
+    H, K, D = JAMBA
+    _decode_check(*_decode(gen, 8, 1024, H, K, D, dtype, lens))
+
+
 def test_decode_attention_empty_row_is_zeros(gen):
     q, k, v, kv_len = _decode(gen, 2, 100, 8, 2, 64, torch.float32, (0, 37))
     out = decode_attention(q, k, v, kv_len)

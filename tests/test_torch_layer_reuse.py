@@ -20,6 +20,7 @@ import torch
 from repro.core.layer_reuse import BlockReuseCache as JBlockReuseCache
 from repro.data.workload import SharedPrefixWorkload as JWorkload
 from repro_torch.configs import get_config as torch_get_config
+from repro_torch.configs import reduced_config as torch_reduced
 from repro_torch.core import BlockReuseCache, SemOffsetEntry
 from repro_torch.data.workload import SharedPrefixWorkload
 from repro_torch.models import build_model
@@ -88,14 +89,18 @@ def test_prefix_reuse_with_changed_suffix():
 
 
 def test_reuse_rejects_ssm_and_swa():
-    """A recurrent family is refused by the cache (and, unported, by
-    ``build_model``); a sliding-window ring is refused too."""
+    """A recurrent family is refused by the cache (a stand-in config, and
+    the reduced mamba2-2.7b and jamba-v0.1-52b, which the port now
+    builds); a sliding-window ring is refused too."""
     cfg = dataclasses.replace(torch_get_config("coic-paper"), family="ssm")
     with pytest.raises(ValueError):
         BlockReuseCache(types.SimpleNamespace(cfg=cfg, device="cpu"),
                         block_size=8)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    for name in ("mamba2-2.7b", "jamba-v0.1-52b"):
+        model = build_model(torch_reduced(torch_get_config(name)),
+                            device="cpu")
+        with pytest.raises(ValueError):
+            BlockReuseCache(model, block_size=8)
     _, _, _, swa = twin("h2o-danube3-4b", True)
     with pytest.raises(ValueError):
         BlockReuseCache(swa, block_size=8)

@@ -7,9 +7,14 @@ the same seeded tokens: ``coic-paper`` (MHA, untied), the reduced
 1 KV head), the reduced ``qwen2-72b`` (QKV biases, drawn at random), the
 reduced ``granite-moe-3b-a800m`` (MoE, tied) under both ``moe_impl``
 ``dense`` and ``dropless`` and, on the slotted path, the reduced
-``h2o-danube3-4b`` (GQA, sliding window 16: a ring cache).  Logits and
-cache state within ``atol=1e-4, rtol=1e-4``; greedy tokens exact.
-Configs compare field for field with the reference's.
+``h2o-danube3-4b`` (GQA, sliding window 16: a ring cache).  The reduced
+``deepseek-v2-lite-16b`` (MLA, a dense ``prefix0`` then MoE with a shared
+expert) runs both cache layouts; the reduced ``mamba2-2.7b`` (SSM, no
+MLP) and ``jamba-v0.1-52b`` (a 4-layer SSM / attention / MoE pattern,
+once and, as ``l8``, repeated twice: stacked leaves) run the slotted one.
+Logits and cache state within ``atol=1e-4, rtol=1e-4``; greedy tokens
+exact.  Configs and layer plans compare field for field with the
+reference's.
 """
 import dataclasses
 
@@ -40,12 +45,17 @@ MODELS = [_case("coic-paper", False), _case("llama3.2-1b", True),
           _case("granite-20b", True), _case("granite-20b", True, "gelu48"),
           _case("qwen2-72b", True),
           _case("granite-moe-3b-a800m", True, moe_impl="dense"),
-          _case("granite-moe-3b-a800m", True, moe_impl="dropless")]
+          _case("granite-moe-3b-a800m", True, moe_impl="dropless"),
+          _case("deepseek-v2-lite-16b", True)]
+# recurrent models keep the slotted cache (paged KV refuses them)
+RECURRENT = [_case("mamba2-2.7b", True), _case("jamba-v0.1-52b", True),
+             _case("jamba-v0.1-52b", True, "l8")]
 # the slotted path also serves sliding-window models (paged KV refuses them)
-SLOTTED = MODELS + [_case("h2o-danube3-4b", True)]
+SLOTTED = MODELS + [_case("h2o-danube3-4b", True)] + RECURRENT
 INVALID = 2 ** 30
 PORTED = ["coic-paper", "llama3.2-1b", "h2o-danube3-4b", "granite-20b",
-          "qwen2-72b", "granite-moe-3b-a800m"]
+          "qwen2-72b", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
+          "mamba2-2.7b", "jamba-v0.1-52b"]
 
 
 def _fields(cfg):
@@ -58,15 +68,45 @@ def _fields(cfg):
 
 @pytest.mark.parametrize("name", PORTED)
 def test_configs_equal_reference(name):
+    """Field for field (``MoEConfig``, ``MLAConfig``, ``SSMConfig``
+    included), full and reduced, and so are each layer's kind and MoE
+    flag."""
     from repro.configs import reduced_config
     assert _fields(torch_get_config(name)) == _fields(get_config(name))
     assert (_fields(torch_reduced(torch_get_config(name)))
             == _fields(reduced_config(get_config(name))))
+    for t, j in ((torch_get_config(name), get_config(name)),
+                 (torch_reduced(torch_get_config(name)),
+                  reduced_config(get_config(name)))):
+        for i in range(j.num_layers):
+            assert t.layer_kind(i) == j.layer_kind(i), (j.name, i)
+            assert t.is_moe_layer(i) == j.is_moe_layer(i), (j.name, i)
+
+
+@pytest.mark.parametrize("name", [
+    "coic-paper", "llama3.2-1b", "h2o-danube3-4b", "granite-20b",
+    "qwen2-72b", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
+    "mamba2-2.7b", "jamba-v0.1-52b", "llava-next-34b"])
+def test_layer_plan_equals_reference(name):
+    """``build_plan`` of every config the reference builds a
+    ``DecoderLM`` for (llava's too, on the reference's config object),
+    full and reduced: the same segment names, patterns and repeats."""
+    from repro.configs import reduced_config
+    from repro.models.transformer import build_plan as jax_plan
+    from repro_torch.models.transformer import build_plan
+
+    def plan(p):
+        return [(s.name, [(sl.kind, sl.mlp) for sl in s.pattern],
+                 int(s.repeats)) for s in p]
+    for cfg in (get_config(name), reduced_config(get_config(name))):
+        assert plan(build_plan(cfg)) == plan(jax_plan(cfg)), cfg.name
 
 
 def test_unported_config_and_missing_gpu_raise():
     with pytest.raises(NotImplementedError):
-        torch_get_config("mamba2-2.7b")
+        torch_get_config("whisper-small")
+    with pytest.raises(NotImplementedError):
+        torch_get_config("llava-next-34b")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             build_model(torch_get_config("coic-paper"))
@@ -175,6 +215,77 @@ def test_dense_prefill_and_decode_match(name, reduced, variant, moe_impl):
         tl, tc, tn = tm.decode_step(tc, torch.from_numpy(tok), tn)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         _close_cache(tc, jc)
+
+
+@pytest.mark.parametrize(CASE, [c for c in SLOTTED
+                                if c.values[0] != "h2o-danube3-4b"])
+def test_slotted_chunks_and_decode_match(name, reduced, variant, moe_impl):
+    """``prefill_chunk`` on the slotted cache, unpadded: a chunk of 20
+    tokens (an SSM layer's scan pads its tail past the reduced chunk of
+    16 with dt = 0), then one of 7 from there, then two greedy decode
+    steps: logits and every cache leaf (an SSM's conv and fp32 state
+    too) against the reference."""
+    cfg, jm, jp, tm = twin(name, reduced, variant, moe_impl)
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(2, 27)).astype(np.int32)
+    jc = jm.init_cache(2, 32)
+    tc = tm.init_cache(2, 32)
+    jn = jnp.zeros((2,), jnp.int32)
+    tn = torch.zeros((2,), dtype=torch.int32)
+    jchunk, jdecode = jax.jit(jm.prefill_chunk), jax.jit(jm.decode_step)
+    for a, b in ((0, 20), (20, 27)):
+        jl, jc, jn = jchunk(jp, jnp.asarray(toks[:, a:b]), jc, jn)
+        tl, tc, tn = tm.prefill_chunk(torch.from_numpy(toks[:, a:b]), tc,
+                                      tn)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        _close_cache(tc, jc)
+    for _ in range(2):
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        np.testing.assert_array_equal(tl.argmax(-1).numpy(), tok)
+        jl, jc, jn = jdecode(jp, jc, jnp.asarray(tok), jn)
+        tl, tc, tn = tm.decode_step(tc, torch.from_numpy(tok), tn)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _close_cache(tc, jc)
+
+
+@pytest.mark.parametrize(CASE, RECURRENT)
+def test_recurrent_models_refuse_pages_and_pads(name, reduced, variant,
+                                                moe_impl):
+    """As in the reference: a recurrent model has no paged pool,
+    ``prefill_chunk`` raises on a block table or a pad mask (both
+    packages), the engine refuses ``kv_page > 0`` and ignores its
+    ``prefill_chunk`` setting (exact-length prefill runs)."""
+    from repro.serving.engine import ServingConfig as JServing
+    from repro.serving.engine import ServingEngine as JServe
+    from repro_torch.serving.engine import ServingConfig as TServing
+    from repro_torch.serving.engine import ServingEngine as TServe
+    cfg, jm, jp, tm = twin(name, reduced, variant, moe_impl)
+    with pytest.raises(ValueError):
+        tm.paged_cache_specs(8, 4)
+    with pytest.raises(ValueError):
+        jm.paged_cache_specs(8, 4)
+    toks = np.zeros((1, 4), np.int32)
+    bt = np.zeros((1, 2), np.int32)
+    w = np.array([3], np.int32)
+    for kw in (dict(block_table=bt), dict(widths=w)):
+        with pytest.raises(NotImplementedError):
+            jm.prefill_chunk(jp, jnp.asarray(toks), jm.init_cache(1, 8),
+                             jnp.zeros((1,), jnp.int32),
+                             **{k: jnp.asarray(v) for k, v in kw.items()})
+        with pytest.raises(NotImplementedError):
+            tm.prefill_chunk(torch.from_numpy(toks), tm.init_cache(1, 8),
+                             torch.zeros((1,), dtype=torch.int32),
+                             **{k: torch.from_numpy(v)
+                                for k, v in kw.items()})
+    with pytest.raises(ValueError):
+        JServe(jm, jp, JServing(kv_page=16))
+    with pytest.raises(ValueError):
+        TServe(tm, TServing(kv_page=16), device="cpu")
+    je = JServe(jm, jp, JServing(prefill_chunk=8))
+    te = TServe(tm, TServing(prefill_chunk=8), device="cpu")
+    assert je._exact_prefill and te._exact_prefill
+    assert not je._can_chunk and not te._can_chunk
 
 
 @pytest.mark.parametrize("S,max_len", [(40, 48), (12, 48), (16, 16),

@@ -11,7 +11,10 @@ runs the same stream with bucketed and with chunked admission, and the
 reduced ``h2o-danube3-4b`` (a sliding-window ring) runs prompts longer
 than its window in equal-length runs, and the reduced
 ``granite-moe-3b-a800m`` (``dropless`` MoE) runs the paged pool with
-chunks that overflow an expert; all with the same checks.
+chunks that overflow an expert; the reduced ``deepseek-v2-lite-16b``
+(MLA's latent paged and slotted) runs the shared-prefix stream, and the
+reduced ``mamba2-2.7b`` and ``jamba-v0.1-52b`` (recurrent: slotted,
+exact-length runs) the equal-length stream; all with the same checks.
 """
 import numpy as np
 import pytest
@@ -133,6 +136,49 @@ def test_swa_engine_matches_jax():
     assert ts["dispatches"]["prefill_chunk"] == 0
     assert ts["dispatches"]["prefill"] >= 4        # runs of equal length
     assert ts["edge_hits"] >= 4 and ts["max_step_ladder"] <= 2
+
+
+@pytest.mark.parametrize("name,kw", [
+    pytest.param("deepseek-v2-lite-16b",
+                 dict(kv_page=16, prefill_chunk=32, attn_impl="paged"),
+                 id="deepseek-paged"),
+    pytest.param("deepseek-v2-lite-16b", dict(kv_page=0, prefill_chunk=32),
+                 id="deepseek-slotted"),
+    pytest.param("mamba2-2.7b", dict(kv_page=0, prefill_chunk=16),
+                 id="mamba2-slotted"),
+    pytest.param("jamba-v0.1-52b", dict(kv_page=0, prefill_chunk=16),
+                 id="jamba-slotted")])
+def test_family_engine_matches_jax(name, kw):
+    """The reduced MLA, SSM and hybrid twins behind the CoIC front: MLA
+    pages and chunks as llama does (its latent pages shared across the
+    stream's heads); a recurrent model prefills equal-length runs at their
+    exact length and never chunks, whatever ``prefill_chunk`` says, as in
+    the reference."""
+    cfg, jm, jp, tm = twin(name, True)
+    recurrent = name != "deepseek-v2-lite-16b"
+    kw = dict(max_batch=4, max_len=64 if recurrent else 96,
+              max_new_tokens=6, **kw)
+    je = JServe(jm, jp, JServing(coic=JCoIC(capacity=64, threshold=0.98),
+                                 **kw))
+    te = TServe(tm, TServing(coic=TCoIC(capacity=64, threshold=0.98), **kw),
+                device="cpu")
+    waves = (_swa_waves(cfg.vocab_size) if recurrent
+             else _waves(cfg.vocab_size))
+    for wave in waves:
+        for p in wave:
+            assert je.submit(p) == te.submit(p)
+        je.run_until_drained()
+        te.run_until_drained()
+    paged = kw["kv_page"] > 0
+    ts = _compare(je, te, STATS_KEYS if paged else
+                  tuple(k for k in STATS_KEYS if k != "kv"))
+    assert ts["edge_hits"] >= 4 and ts["max_step_ladder"] <= 2
+    if paged:
+        assert ts["prefill_tokens"]["shared"] > 0
+        assert (te.kv.refcount == 0).all()
+    assert (ts["dispatches"]["prefill_chunk"] > 0) == (not recurrent)
+    if recurrent:
+        assert ts["dispatches"]["prefill"] >= 4     # runs of equal length
 
 
 def _moe_twins():
@@ -265,6 +311,43 @@ def test_batch_cache_insert_and_scatter_match_jax():
             mod.batch_cache_scatter(cache, {k: conv(v)
                                             for k, v in many.items()},
                                     np.array([1, 0, 1], np.int32))
+
+
+def test_batch_cache_writers_overwrite_recurrent_rows():
+    """The reduced jamba's slotted leaves (attention k/v, SSM conv and the
+    fp32 state): an admission's insert and scatter overwrite each target
+    row whole, stale state included, leaf for leaf as in the
+    reference."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.serving import kv_cache as J
+    from repro_torch.serving import kv_cache as T
+    _, jm, _, tm = twin("jamba-v0.1-52b", True)
+    rng = np.random.default_rng(8)
+    specs = tm.cache_specs(3, 9)
+    assert specs["blocks/0/state"][1] == torch.float32
+    one = {k: rng.normal(size=(s[0], 1) + s[2:]).astype(np.float32)
+           for k, (s, _) in tm.cache_specs(1, 9).items()}
+    many = {k: rng.normal(size=s).astype(np.float32)
+            for k, (s, _) in specs.items()}
+    jc = {k: v + 1.0 for k, v in J.init_batch_cache(jm, 4, 9).items()}
+    tc = {k: v + 1.0 for k, v in T.init_batch_cache(tm, 4, 9).items()}
+    jc = J.batch_cache_insert(jc, {k: jnp.asarray(v) for k, v in one.items()},
+                              2)
+    T.batch_cache_insert(tc, {k: torch.from_numpy(v) for k, v in one.items()},
+                         2)
+    jc = J.batch_cache_scatter(jc, {k: jnp.asarray(v)
+                                    for k, v in many.items()},
+                               jnp.asarray([3, 0, 1], jnp.int32))
+    T.batch_cache_scatter(tc, {k: torch.from_numpy(v)
+                               for k, v in many.items()}, [3, 0, 1])
+    for k in jc:
+        assert tc[k].dtype == (torch.float32 if k.endswith("/state")
+                               else tm.dtype)
+        np.testing.assert_array_equal(tc[k].numpy(), np.asarray(jc[k]))
+        np.testing.assert_array_equal(tc[k][:, 2].numpy(), one[k][:, 0])
+        np.testing.assert_array_equal(tc[k][:, [3, 0, 1]].numpy(), many[k])
 
 
 def test_unported_paths_raise():

@@ -21,10 +21,16 @@ VARIANTS = {
     # granite-20b's GELU MLP and its multi-query grouping, 48 query heads
     # on 1 KV head, at the reduced widths
     "gelu48": dict(mlp_kind="gelu", num_heads=48, num_kv_heads=1),
+    # the reduced jamba at two repeats of its 4-layer pattern: stacked
+    # leaves of a multi-position pattern
+    "l8": dict(num_layers=8),
 }
-# zero-initialised bias leaves, drawn at random in a twin so that the
-# parity tests exercise them
-BIASES = ("/attn/bq", "/attn/bk", "/attn/bv", "/mlp/b_in", "/mlp/b_out")
+# leaves that start at a constant (zero biases; the SSM block's decay,
+# step bias, skip, conv bias and norm; MLA's latent norm), moved by a
+# random draw in a twin so that the parity tests exercise them
+BIASES = ("/attn/bq", "/attn/bk", "/attn/bv", "/mlp/b_in", "/mlp/b_out",
+          "/ssm/a_log", "/ssm/dt_bias", "/ssm/d_skip", "/ssm/norm_w",
+          "/ssm/conv_b", "/attn/kv_norm")
 
 
 @functools.lru_cache(maxsize=None)
@@ -33,7 +39,8 @@ def twin(name: str, reduced: bool = False, variant: str = "",
     """(jax cfg, jax model, jax params, torch model) for config ``name``
     (``reduced_config`` of it when ``reduced``, then ``VARIANTS[variant]``),
     float32, both models on the same ``moe_impl`` (None: the reference's
-    rule).  Bias leaves are random (seed 0) rather than zeros."""
+    rule).  ``BIASES`` leaves are their constant plus 0.1 x a standard
+    normal (seed 0)."""
     jcfg, tcfg = get_config(name), torch_get_config(name)
     if reduced:
         jcfg, tcfg = reduced_config(jcfg), torch_reduced_config(tcfg)
@@ -45,8 +52,9 @@ def twin(name: str, reduced: bool = False, variant: str = "",
     rng = np.random.default_rng(0)
     for k in sorted(jparams):
         if k.endswith(BIASES):
-            jparams[k] = jax.numpy.asarray(0.1 * rng.standard_normal(
-                jparams[k].shape), jparams[k].dtype)
+            jparams[k] = jax.numpy.asarray(
+                np.asarray(jparams[k]) + 0.1 * rng.standard_normal(
+                    jparams[k].shape), jparams[k].dtype)
     tmodel = torch_build(tcfg, device="cpu", moe_impl=moe_impl)
     params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, tmodel)
     return jcfg, jmodel, jparams, tmodel
