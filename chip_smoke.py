@@ -78,7 +78,27 @@ Phases, one line each; any failure raises and exits non-zero:
                ~102 GB of bf16 weights exceed the card), the ssm waves;
                K1-K3 held; one launch each of K7 and K8 at G = 4, D = 128
                held and timed beside SDPA and its bound;
- 14. e2e     — the kernel path against the plain path, in fp32 (TF32
+ 14. llava   — llava-next-34b at full width (56/8 heads of 128: G = 7),
+               depth cut to 8 of 60 layers, bf16: a paged serve wave
+               (text only, as the reference's engine serves it; K1-K3
+               held, K5's G = 7 decode and K8 held and timed), then a
+               model-level prefill of 576 image patches + 128 tokens
+               (B = 2) against ``forward``, its K8 launch (S = 704) held
+               and timed beside SDPA;
+ 15. train   — llama3.2-1b at its published widths and depth, fp32
+               master and bf16 compute, remat "full", loss_chunk 256:
+               8 ``Trainer.fit`` steps of ``SyntheticLMData(seq_len=1025,
+               global_batch=8)`` in 2 microbatches under the profiler;
+               finite and falling loss, a gradient for every layer of
+               every leaf, K8 launched (its forward; the backward is the
+               plain version's) and held; a checkpoint at step 4 restored
+               into a fresh state reruns step 5 to the same loss;
+ 16. whisper — whisper-small at its published widths and depth: fp32
+               encode (4 x 1500 frames), prefill and 32 decode steps
+               against ``decode_full``; 4 bf16 ``Trainer`` steps of
+               ``EncDecLM.loss``; no kernel (plain attention, as in the
+               reference);
+ 17. e2e     — the kernel path against the plain path, in fp32 (TF32
                off), decoded tokens and sources identical: coic-paper
                attn_impl "paged" vs "gather" on one cluster, lookup_impl
                "auto" vs "ref" on the federated waves, then the slotted
@@ -90,7 +110,11 @@ Phases, one line each; any failure raises and exits non-zero:
                qwen2-72b (paged), deepseek-v2-lite-16b (paged) and
                mamba2-2.7b (slotted) at full width cut to 2 layers and
                jamba-v0.1-52b (slotted) cut to one 8-layer pattern, every
-               kernel against every plain version, tier counts equal too.
+               kernel against every plain version, tier counts equal too;
+               a train step of llama3.2-1b (2 layers) through K8 against
+               its plain version (loss, gradients, parameters), and K8's
+               ``FlashAttention`` gradients at the train path's shape
+               against plain autograd.
 
 Each phase prints its seconds.
 
@@ -186,8 +210,12 @@ def main() -> None:
                           {"similarity_lookup": reuse_held})}
     for path, fn in (("moe", phase_moe), ("mqa", phase_mqa),
                      ("qkvb", phase_qkvb), ("mla", phase_mla),
-                     ("ssm", phase_ssm), ("hybrid", phase_hybrid)):
+                     ("ssm", phase_ssm), ("hybrid", phase_hybrid),
+                     ("llava", phase_llava)):
         families[path] = fn(torch)
+    train_launches, train_held = phase_train(torch)
+    families["train"] = (train_launches, None, train_held)
+    phase_whisper(torch)
     t_phase = time.perf_counter()
     # each kernel's launches on the path that runs it: the single-cluster
     # serve path (K1-K3, K5), the federated path (K6), the surviving-shard
@@ -229,6 +257,7 @@ def main() -> None:
     phase_federated_e2e(torch)
     phase_slotted_e2e(torch)
     phase_family_e2e(torch)
+    phase_train_e2e(torch)
     lap("e2e")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -789,6 +818,9 @@ def check_ivf_pq(torch, g, timer):
 
 
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# bf16 outputs from this magnitude up are held within one bf16 step
+# (2^-5 in [4, 8)) rather than ATTN_TOL, which the rounding alone can break
+BF16_STEP_FROM = 4.0
 SWA = {"B": 8, "S": 4608, "Sk": 4096, "window": 4096, "H": 32, "K": 8,
        "D": 120}                          # the swa path's attention shapes
 
@@ -1135,12 +1167,28 @@ def phase_serve(torch, model):
     return launches, st
 
 
+def device_summary(prof, wall_us):
+    """A profile's CUDA kernels, their busy time (us) and a line: the wall
+    time, the device's busy time and idle share, the six kernels that took
+    the most device time."""
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return kern, busy_us, (
+        f"wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
+                    f" x{e.count}" for e in top))
+
+
 def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
     """Where a serving wave's time goes: one more wave (after the path's
     launch counts were read) of (prompt, node, cluster) requests under
     ``torch.profiler``; prints the wall time, the device's busy and idle
     shares, and the kernels that took the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import LAUNCHES
@@ -1156,14 +1204,11 @@ def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     k7_calls = LAUNCHES["decode_attention"] - k7_calls
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kern)
+    kern, busy_us, text = device_summary(prof, wall_us)
     if busy_us <= 0:
         print(f"{label}: device time not measured (the profiler saw no "
               "kernel)", flush=True)
         return
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     # K5's and K7's kernels (csrc/paged_attention.cu names each
     # paged_*_kernel, csrc/decode_attention.cu each decode_*_kernel)
     def share(name, prefix):
@@ -1175,11 +1220,7 @@ def profile_wave(torch, eng, wave, label="serve: profile wave 3"):
                             f"{e.self_device_time_total / 1e3:.2f} ms "
                             f"x{e.count}" for e in ks))
 
-    print(f"{label} ({len(wave)} requests): wall "
-          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-          f"(idle share {1 - busy_us / wall_us:.3f}); top kernels: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
-                      f" x{e.count}" for e in top)
+    print(f"{label} ({len(wave)} requests): {text}"
           + share("K5 (paged attention)", "paged_")
           + share(f"K7 (flash-decode, {k7_calls} calls)", "decode_"),
           flush=True)
@@ -1854,11 +1895,20 @@ def path_agree(torch, name, out, plain, args, shared=(), live=None):
     the plain version also runs in bf16, where it rounds the logits to
     bf16 as the reference does, an error that grows with their magnitude:
     the kernel's distance from that result and that result's own distance
-    from the fp32 one are reported beside."""
+    from the fp32 one are reported beside.  A bf16 output of magnitude
+    ``BF16_STEP_FROM`` (4) or more, where one bf16 step (2^-5) exceeds
+    2e-2 and the output's own rounding can break it, is held within one
+    bf16 step of the fp32 result instead, the rule the kernels phase holds
+    K8 to on a V in [4, 8) (ROADMAP Queue 3); the report gives the largest
+    output magnitude, the error below 4 and the steps from 4 up."""
+    out = out.detach()
+    bf16 = out.dtype != torch.float32
     wide = [x.float() if x.is_floating_point() else x for x in args]
-    rep = {"max_abs_err": 0.0}
-    if out.dtype != torch.float32:
-        rep.update(dtype_plain_max_abs_err=0.0, plain_max_abs_err=0.0)
+    rep = {"max_abs_err": 0.0, "max_abs_out": 0.0}
+    if bf16:
+        rep.update(dtype_plain_max_abs_err=0.0, plain_max_abs_err=0.0,
+                   max_abs_err_below_4=0.0, bf16_steps_from_4=0.0,
+                   n_from_4=0)
     for b in range(out.shape[0]):
         if live is not None and not bool(live[b]):
             continue
@@ -1867,25 +1917,42 @@ def path_agree(torch, name, out, plain, args, shared=(), live=None):
                     for i, x in enumerate(xs)]
         o = out[b:b + 1].float()
         exact = plain(*row(wide)).float()
-        rep["max_abs_err"] = max(rep["max_abs_err"],
-                                 float((o - exact).abs().max()))
-        if out.dtype != torch.float32:
+        d = (o - exact).abs()
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(d.max()))
+        rep["max_abs_out"] = max(rep["max_abs_out"], float(o.abs().max()))
+        if bf16:
+            big = torch.maximum(o.abs(), exact.abs()) >= BF16_STEP_FROM
+            if not bool(big.all()):
+                rep["max_abs_err_below_4"] = max(rep["max_abs_err_below_4"],
+                                                 float(d[~big].max()))
+            if bool(big.any()):
+                rep["bf16_steps_from_4"] = max(
+                    rep["bf16_steps_from_4"],
+                    bf16_steps(torch, o[big], exact[big]))
+                rep["n_from_4"] += int(big.sum())
             p = plain(*row(args)).float()
             for key, e in (("dtype_plain_max_abs_err", o - p),
                            ("plain_max_abs_err", p - exact)):
                 rep[key] = max(rep[key], float(e.abs().max()))
-    assert rep["max_abs_err"] <= ATTN_TOL[_dt(out.dtype)], (
-        name, "on the path", rep)
+    ok = (rep["max_abs_err_below_4"] <= ATTN_TOL["bfloat16"]
+          and rep["bf16_steps_from_4"] <= 1.0) if bf16 else (
+        rep["max_abs_err"] <= ATTN_TOL["float32"])
+    assert ok, (name, "on the path", rep)
     return rep
 
 
 def agree_text(row) -> str:
     """``path_agree``'s report as printed."""
     return (f"max err {row['max_abs_err']:.3g} against the plain version "
-            "in fp32" + ("" if "plain_max_abs_err" not in row else
-                         f"; {row['dtype_plain_max_abs_err']:.3g} against "
-                         f"it in bf16, itself "
-                         f"{row['plain_max_abs_err']:.3g} from fp32"))
+            f"in fp32 (max |out| {row['max_abs_out']:.3g}"
+            + ("" if not row.get("n_from_4") else
+               f"; {row['n_from_4']} outputs from 4 up within "
+               f"{row['bf16_steps_from_4']:.3g} bf16 step, the rest within "
+               f"{row['max_abs_err_below_4']:.3g}")
+            + ")" + ("" if "plain_max_abs_err" not in row else
+                     f"; {row['dtype_plain_max_abs_err']:.3g} against "
+                     f"it in bf16, itself "
+                     f"{row['plain_max_abs_err']:.3g} from fp32"))
 
 
 def hold_on_path(torch, name, call, timed=False):
@@ -1904,6 +1971,7 @@ def hold_on_path(torch, name, call, timed=False):
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     args, kw, out = call
+    args = [a.detach() if hasattr(a, "detach") else a for a in args]
     q = args[0]
     shared, live = (), None
     if name == "flash_attention":
@@ -2085,6 +2153,13 @@ def phase_mqa(torch):
     held = {"paged_attention": paged[2]["paged_attention"],
             "flash_attention": slotted[2]["flash_attention"],
             "decode_attention": slotted[2]["decode_attention"]}
+    # every K1-K3 launch of both engines was held (``hold_similarity``)
+    for name in SIM_KERNELS:
+        rows = [w[2][name] for w in (paged, slotted) if name in w[2]]
+        if rows:
+            held[name] = dict(rows[0], held=sum(r["held"] for r in rows),
+                              max_abs_err=max(r["max_abs_err"]
+                                              for r in rows))
     return launches, paged[1]["completed"] + slotted[1]["completed"], held
 
 
@@ -2456,6 +2531,425 @@ def phase_family_e2e(torch):
                   f"versions; {time.perf_counter() - t0:.1f} s", flush=True)
         del model
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 15. training, llava's patches and whisper's encoder-decoder
+# ---------------------------------------------------------------------------
+
+# the train phase's settings: llama3.2-1b at its published widths and
+# depth, random weights from seed 0, fp32 master, bf16 compute, remat
+# "full" (the config's default), chunked CE
+TRAIN = dict(loss_chunk=256, seq_len=1025, global_batch=8, microbatches=2,
+             peak_lr=3e-4, warmup_steps=2, total_steps=16, steps=8, save_at=4)
+
+
+def k8_device_ms(kern):
+    """K8's device time (ms) among a profile's kernels
+    (csrc/flash_attention.cu's are ``flash_kernel`` and
+    ``flash_mma_kernel``) and its kernel count."""
+    ks = [e for e in kern
+          if "flash_kernel" in e.key or "flash_mma_kernel" in e.key]
+    return (sum(e.self_device_time_total for e in ks) / 1e3,
+            sum(e.count for e in ks))
+
+
+def capture_flash():
+    """Patch K8's wrapper to keep its first launch (arguments and output);
+    returns (store, restore)."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+
+    store, orig = [], fa_ops.flash_attention_cuda
+    fa_ops.flash_attention_cuda = _keep_first(store, orig,
+                                              lambda *a, **kw: True)
+
+    def restore():
+        fa_ops.flash_attention_cuda = orig
+    return store, restore
+
+
+def has_gradient(mu, stacked: bool) -> bool:
+    """A leaf got a nonzero gradient, in every layer's slice when it is
+    stacked: its AdamW first moment (0.1 x the clipped gradient after one
+    step, a decaying sum of them after more) is nonzero there."""
+    m = mu.reshape(mu.shape[0] if stacked else 1, -1)
+    return bool((m.abs().amax(dim=1) > 0).all())
+
+
+def phase_train(torch):
+    """llama3.2-1b at its published widths and depth (16 layers, d_model
+    2048, 32/8 heads, vocab 128256, tied), random weights from seed 0,
+    fp32 master and bf16 compute, remat "full", ``loss_chunk`` 256
+    (``dataclasses.replace``), ``SyntheticLMData(seq_len=1025,
+    global_batch=8)`` in 2 microbatches, AdamW at peak lr 3e-4 (warmup 2,
+    total 16): 8 steps of ``Trainer.fit`` under the profiler, a checkpoint
+    at step 4 (``Checkpointer``, the reference's format, under the
+    git-ignored ``build/``).  Gates: every loss and grad norm finite, the
+    last loss below the first, every leaf's every layer slice with a
+    nonzero gradient, K8 launched on the path (its first launch held
+    against the plain version and timed beside SDPA); then step 4 restored
+    into a fresh state reruns step 5 to the uninterrupted run's loss,
+    exactly.  Returns (launches, held rows)."""
+    import math
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           init_train_state)
+    from repro_torch.utils.tree import tree_size_bytes
+
+    t0 = time.perf_counter()
+    T = TRAIN
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              loss_chunk=T["loss_chunk"])
+    model = build_model(cfg, device="cuda")
+    tcfg = TrainerConfig(peak_lr=T["peak_lr"], warmup_steps=T["warmup_steps"],
+                         total_steps=T["total_steps"],
+                         microbatches=T["microbatches"])
+    # a one-element list, popped into fit: no local keeps an old state
+    # alive, so each step frees the one before (as the reference donates it)
+    state = [init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), tcfg)]
+    print(f"train: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+          f"{cfg.vocab_size}, tied), remat {cfg.remat!r}, loss_chunk "
+          f"{cfg.loss_chunk} (set with dataclasses.replace), fp32 master "
+          f"({tree_size_bytes(state[0].params) / 2 ** 30:.2f} GiB) and "
+          f"{tcfg.compute_dtype} compute; SyntheticLMData(seq_len="
+          f"{T['seq_len']}, global_batch={T['global_batch']}), microbatches "
+          f"{tcfg.microbatches}, peak_lr {tcfg.peak_lr}, warmup "
+          f"{tcfg.warmup_steps}, total_steps {tcfg.total_steps}", flush=True)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=T["seq_len"],
+                           global_batch=T["global_batch"])
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt = Checkpointer(str(ckdir), keep=1)
+    trainer = Trainer(model, tcfg, checkpointer=ckpt, log_every=0)
+    store, restore = capture_flash()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # the path starts here
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            mid, hist = trainer.fit(state.pop(), data.iterator(),
+                                    T["save_at"],
+                                    checkpoint_every=T["save_at"])
+            stacked = {n for n, r, *_ in model.leaves() if r is not None}
+            every = {k: has_gradient(m, k in stacked)
+                     for k, m in mid.opt.mu.items()}
+            state.append(mid)
+            del mid
+            end, rest = trainer.fit(state.pop(), data.iterator(T["save_at"]),
+                                    T["steps"] - T["save_at"])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t1) * 1e6
+    finally:
+        restore()
+    launches = dict(LAUNCHES)              # ... and ends here
+    hist += rest
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = T["seq_len"] * T["global_batch"]
+    for i, h in enumerate(hist, 1):
+        print(f"train: step {i}: loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.6f}, lr {h['lr']:.6g}, "
+              f"{h['seconds'] * 1e3:.1f} ms ({tokens / h['seconds']:.0f} "
+              "tokens/s, under the profiler)", flush=True)
+    assert all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist), hist
+    assert hist[-1]["loss"] < hist[0]["loss"], [h["loss"] for h in hist]
+    assert all(every.values()), [k for k, v in every.items() if not v]
+    assert launches["flash_attention"] > 0, launches
+    assert store, "no K8 launch captured on the train path"
+    kern, _, text = device_summary(prof, wall_us)
+    k8_ms, k8_kernels = k8_device_ms(kern)
+    print(f"train: profile of the {T['steps']} steps (the checkpoint's "
+          f"host copy at step {T['save_at']} included): {text}", flush=True)
+    row = hold_on_path(torch, "flash_attention", store[0], timed=True)
+    print(f"train: every loss and grad norm finite, loss {hist[0]['loss']:.4f}"
+          f" -> {hist[-1]['loss']:.4f}; all {len(every)} leaves (every layer "
+          f"slice) got a gradient; peak memory {peak:.2f} GiB; K8 launches "
+          f"{launches['flash_attention']} ({k8_kernels} kernels profiled, "
+          f"{k8_ms:.2f} ms device over {T['steps']} steps); launches "
+          f"{launches}", flush=True)
+    print(f"train: flash_attention on the path ({row['shape']}): == plain "
+          f"({agree_text(row)}); {times_text(row)}", flush=True)
+    # save at step 4, restore into a fresh state, rerun step 5
+    ckpt.wait()
+    assert ckpt.steps() == [T["save_at"]], ckpt.steps()
+    nbytes = sum(f.stat().st_size for f in ckdir.rglob("*.npy"))
+    t1 = time.perf_counter()
+    restored = ckpt.restore(T["save_at"], end, device="cuda")
+    t_restore = time.perf_counter() - t1
+    assert int(restored.step) == T["save_at"]
+    del end
+    _, again = Trainer(model, tcfg, log_every=0).fit(
+        restored, data.iterator(T["save_at"]), 1)
+    ref5 = hist[T["save_at"]]["loss"]
+    assert again[0]["loss"] == ref5, (again[0]["loss"], ref5)
+    print(f"train: checkpoint at step {T['save_at']}: {nbytes / 2 ** 30:.2f} "
+          f"GiB of .npy, written in {ckpt.save_seconds[-1]:.1f} s (a thread, "
+          f"beside the next steps), restored in {t_restore:.1f} s; step "
+          f"{T['save_at'] + 1} rerun from it: loss {again[0]['loss']:.6f} == "
+          f"the uninterrupted run's {ref5:.6f}; "
+          f"{again[0]['seconds'] * 1e3:.1f} ms ({tokens / again[0]['seconds']:.0f}"
+          " tokens/s, no profiler)", flush=True)
+    del restored, model
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"train: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, {"flash_attention": row}
+
+
+def phase_train_e2e(torch):
+    """fp32 (TF32 off), llama3.2-1b at full widths cut to 2 layers, random
+    weights from seed 0, ``loss_chunk`` 256, one batch of
+    ``SyntheticLMData(seq_len=1025, global_batch=4)``: the loss and every
+    gradient through K8 (``attention_impl="auto"``: ``FlashAttention``,
+    the kernel forward) against the plain version (``"ref"``, plain
+    autograd): losses within 1e-5, each leaf's gradient within 1e-4 of
+    the plain gradient's norm (||g_k - g_p|| <= 1e-4 ||g_p||); then one
+    train step each, the parameters within 1e-6 where the gradient's
+    magnitude is at least 1e-6 and within 2 x lr elsewhere.  Then K8's
+    ``FlashAttention`` at the train path's shape (B=4 S=1025 H=32 K=8
+    D=64 fp32) against plain autograd on the same cotangent: outputs
+    within 1e-5, gradients within 1e-6 (the backward is the plain
+    version's own, so they should be equal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import master_params
+    from repro_torch.train.trainer import (TrainerConfig, TrainState,
+                                           loss_and_grads, make_optimizer,
+                                           make_train_step, to_device)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
+                              dtype="float32",
+                              loss_chunk=TRAIN["loss_chunk"])
+    tcfg = TrainerConfig(peak_lr=TRAIN["peak_lr"],
+                         warmup_steps=TRAIN["warmup_steps"],
+                         total_steps=TRAIN["total_steps"],
+                         compute_dtype="float32")
+    batch = SyntheticLMData(vocab_size=cfg.vocab_size,
+                            seq_len=TRAIN["seq_len"],
+                            global_batch=4).batch_at(0)
+    out = {}
+    for impl in ("auto", "ref"):
+        model = build_model(
+            cfg, attention_impl=impl, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        reset_launches()
+        params = master_params(model)
+        loss, _, grads = loss_and_grads(model, params,
+                                        to_device(batch, "cuda"),
+                                        torch.float32)
+        state = TrainState(params, make_optimizer(tcfg).init(params),
+                           torch.zeros((), dtype=torch.int32, device="cuda"))
+        new, met = make_train_step(model, tcfg)(state, batch)
+        torch.cuda.synchronize()
+        assert (LAUNCHES["flash_attention"] > 0) == (impl == "auto"), (
+            impl, dict(LAUNCHES))
+        out[impl] = (float(loss), grads, new.params, new.opt.mu,
+                     float(met["lr"]))
+        del model, state, new
+    (lk, gk, pk, mk, lr), (lp, gp, pp, _, _) = out["auto"], out["ref"]
+    assert abs(lk - lp) <= 1e-5, (lk, lp)
+    g_err = max(float((gk[k] - gp[k]).norm() / gp[k].norm()) for k in gp)
+    assert g_err <= 1e-4, g_err
+    p_err = small_err = 0.0
+    for k in pp:
+        d = (pk[k] - pp[k]).abs()
+        small = mk[k].abs() / 0.1 < 1e-6           # |clipped gradient|
+        p_err = max(p_err, float(d[~small].max()) if (~small).any() else 0)
+        small_err = max(small_err, float(d[small].max()) if small.any()
+                        else 0)
+    assert p_err <= 1e-6 and small_err <= 2 * lr, (p_err, small_err, lr)
+    print(f"e2e: train step, llama3.2-1b fp32 (full width, 2 layers): loss "
+          f"{lk:.7f} through K8, {lp:.7f} plain (|diff| {abs(lk - lp):.3g}, "
+          f"held 1e-5); gradients within {g_err:.3g} of the plain norm (held "
+          f"1e-4); parameters within {p_err:.3g} (held 1e-6), {small_err:.3g}"
+          f" where |g| < 1e-6 (held 2 x lr = {2 * lr:.3g})", flush=True)
+    del out, gk, gp, pk, pp, mk
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, S, H, K, D = 4, TRAIN["seq_len"], 32, 8, 64
+    q = torch.randn(B, S, H, D, generator=g, device="cuda")
+    k, v = (torch.randn(B, S, K, D, generator=g, device="cuda")
+            for _ in range(2))
+    dout = torch.randn(B, S, H, D, generator=g, device="cuda")
+    res = []
+    for impl in ("cuda", "ref"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*leaves, impl=impl)
+        res.append((o.detach(), torch.autograd.grad(o, leaves, dout)))
+    (ok, gk), (op, gp) = res
+    o_err = float((ok - op).abs().max())
+    d_err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    assert o_err <= ATTN_TOL["float32"] and d_err <= 1e-6, (o_err, d_err)
+    print(f"e2e: K8's FlashAttention (B={B} S={S} H={H} K={K} D={D} fp32): "
+          f"output within {o_err:.3g} of plain (held 1e-5), gradients within "
+          f"{d_err:.3g} of plain autograd's (held 1e-6); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_llava(torch):
+    """llava-next-34b at its published widths (60 layers of d_model 7168,
+    56/8 heads of 128, d_ff 20480, vocab 64000, untied), depth cut to 8 of
+    60 (the full ~69 GB of bf16 weights leave the serve path no room on
+    the card), bf16, random weights from seed 0.  One paged serve wave of
+    8 prompts through ``serve_family`` (text only, as the reference's
+    engine serves it): K1-K3 held; K5 (decode at G = 7) and K8 held by
+    ``path_agree`` and timed beside SDPA.  Then a model-level ``prefill``
+    of B = 2 with 576 image patches (one anyres tile, standard normal)
+    before 128 text tokens: its last logits against ``forward``'s within
+    the reference's prefill-vs-forward rule (rtol 2e-2, atol 2e-2), and
+    its K8 launch (S = 704, H = 56, K = 8, D = 128) held and timed beside
+    SDPA.  Returns (launches, requests, held rows)."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    model = build_full(torch, "llava-next-34b", "llava", num_layers=8)
+    cfg = model.cfg
+    V = cfg.vocab_size
+    rng = np.random.default_rng(9)
+    heads = [rng.integers(0, V, size=(64,)).astype(np.int32)
+             for _ in range(2)]
+    launches, st, held, _ = serve_family(
+        torch, model, "llava", (stream(rng, V, heads, 8),), PAGED_KERNELS,
+        timed=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    P = cfg.num_image_patches
+    toks = torch.randint(0, V, (2, 128), generator=g, device="cuda")
+    img = torch.randn(2, P, cfg.d_model, generator=g, device="cuda")
+    store, restore = capture_flash()
+    reset_launches()
+    try:
+        lg, cache, ln = model.prefill(toks, image_embeds=img,
+                                      max_len=P + 128)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    n_pre = LAUNCHES["flash_attention"]
+    full = model.forward(toks, image_embeds=img)[:, -1].float()
+    assert ln.tolist() == [P + 128] * 2, ln
+    err = float((lg.float() - full).abs().max())
+    assert torch.allclose(lg.float(), full, rtol=2e-2, atol=2e-2), err
+    assert n_pre == cfg.num_layers and store, n_pre
+    row = hold_on_path(torch, "flash_attention", store[0], timed=True)
+    print(f"llava: prefill with {P} image patches + 128 tokens (B=2, "
+          f"{P + 128} positions): last logits within {err:.3g} of forward's "
+          f"(held rtol 2e-2, atol 2e-2); K8 {n_pre} launches; "
+          f"flash_attention at the patches ({row['shape']}): == plain "
+          f"({agree_text(row)}); {times_text(row)}", flush=True)
+    held["flash_attention"] = dict(held["flash_attention"],
+                                   image_prefill=row)
+    launches["flash_attention"] += n_pre
+    del model, cache
+    torch.cuda.empty_cache()
+    print(f"llava: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, st["completed"], held
+
+
+def phase_whisper(torch):
+    """whisper-small at its published widths and depth (12 encoder and 12
+    decoder layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51865),
+    random weights from seed 0.  fp32 (TF32 off): encode B = 4 x 1500
+    frames (whisper's 30 s window; standard normal frame embeddings, the
+    front end being a stub as in the reference), prefill 16 decoder
+    tokens, then 32 greedy decode steps; each step's logits (and the
+    prefill's) against ``decode_full`` over the 48 tokens within atol
+    1e-3 + rtol 1e-3, as the reference's decode-consistency test holds
+    them.  bf16: 4 ``Trainer`` steps of ``EncDecLM.loss`` on one batch of
+    ``SyntheticLMData(encdec=True)`` (1500 frames, dec_len 375 from
+    ``decoder_len_ratio`` 0.25, B = 4) repeated, finite and falling loss.
+    Its attention is plain, as in the reference: no kernel launches."""
+    import itertools
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           init_train_state)
+
+    t0 = time.perf_counter()
+    base = get_config("whisper-small")
+    cfg = dataclasses.replace(base, dtype="float32")
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    print(f"whisper: built {cfg.name} ({cfg.encdec.num_encoder_layers} "
+          f"encoder + {cfg.num_layers} decoder layers, d_model {cfg.d_model},"
+          f" {cfg.num_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, fp32)", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, S_enc, Sd, steps = 4, 1500, 16, 32
+    enc = torch.randn(B, S_enc, cfg.d_model, generator=g, device="cuda")
+    dec = torch.randint(0, cfg.vocab_size, (B, Sd), generator=g,
+                        device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache, ln = model.prefill(enc, dec, max_len=Sd + steps)
+        logits, cur = [lg], dec
+        for _ in range(steps):
+            nxt = lg.argmax(-1)
+            lg, cache, ln = model.decode_step(cache, nxt, ln)
+            cur = torch.cat([cur, nxt[:, None]], dim=1)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t1
+        full = model.decode_full(model.encode(enc), cur)
+    err = max(float((a - full[:, Sd - 1 + i]).abs().max())
+              for i, a in enumerate(logits))
+    for i, a in enumerate(logits):
+        assert torch.allclose(a, full[:, Sd - 1 + i], rtol=1e-3,
+                              atol=1e-3), (i, err)
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    print(f"whisper: fp32 encode B={B} x {S_enc} frames, prefill {Sd} "
+          f"tokens, {steps} decode steps in {t_dec:.2f} s; every step's "
+          f"logits within {err:.3g} of decode_full's (held atol 1e-3 + rtol "
+          "1e-3); no kernel launches (plain attention, as in the "
+          "reference)", flush=True)
+    del model, cache, full, logits
+    torch.cuda.empty_cache()
+    model = build_model(base, device="cuda")
+    tcfg = TrainerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=8)
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), tcfg)
+    dec_len = int(S_enc * base.encdec.decoder_len_ratio)
+    batch = SyntheticLMData(vocab_size=base.vocab_size, seq_len=S_enc,
+                            global_batch=B, encdec=True, d_model=base.d_model,
+                            dec_len=dec_len).batch_at(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, hist = Trainer(model, tcfg, log_every=0).fit(
+        state, itertools.repeat(batch), 4)
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    print(f"whisper: bf16 Trainer on EncDecLM.loss (B={B}, {S_enc} frames, "
+          f"dec_len {dec_len}), one batch 4 times: losses "
+          f"{[round(x, 4) for x in losses]}, step ms "
+          f"{[round(h['seconds'] * 1e3, 1) for h in hist]}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    print(f"whisper: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
 
 if __name__ == "__main__":
     main()

@@ -230,20 +230,18 @@ _ALIASES = {
 }
 
 
-# configurations this package carries a copy of; whisper-small and
-# llava-next-34b need the encoder-decoder and the image/audio front ends
-# (ROADMAP.md Queue 1 item 13)
+# configurations this package carries a copy of: every one of the
+# reference's
 PORTED_CONFIGS = ("coic_paper", "llama32_1b", "h2o_danube3_4b", "granite_20b",
                   "qwen2_72b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b",
-                  "mamba2_2p7b", "jamba_v01_52b")
+                  "mamba2_2p7b", "jamba_v01_52b", "llava_next_34b",
+                  "whisper_small")
 
 
 def get_config(name: str) -> ModelConfig:
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in PORTED_CONFIGS:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP.md Queue 1 item 13,"
-            f" other model families); ported: {PORTED_CONFIGS}")
+        raise ValueError(f"unknown config {name!r}; known: {PORTED_CONFIGS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 

@@ -1,9 +1,11 @@
 """Layer primitives of the decoder, as plain functions on tensors.
 
-The port of ``repro/models/layers.py``: RMSNorm,
-rotate-half RoPE, the attention mask (causal, sliding window, cache
-fill), GQA attention over a mask (the plain path of chunked prefill and
-the gathered paged view), causal attention of a full sequence through
+The port of ``repro/models/layers.py``: RMSNorm and
+LayerNorm (whisper), rotate-half RoPE, the attention mask (causal,
+sliding window, cache fill), GQA attention over a mask (the plain path
+of chunked prefill and the gathered paged view), the encoder-decoder's
+plain attention (q-chunked when long) and unmasked cross attention,
+causal attention of a full sequence through
 the flash-attention kernel (K8), the attention projections in the
 reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)), MLA
 (DeepSeek-V2's latent attention, plain PyTorch as in the reference), the
@@ -48,6 +50,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with bias (whisper), in fp32, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -107,6 +119,39 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, Sq, H, D)
+
+
+def mha_cross_attention(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Unmasked cross attention (encoder-decoder), q (B, Sq, H, D) over
+    k/v (B, Sk, H, D): fp32 logits divided by sqrt(D), probabilities cast
+    to v's dtype, as in the reference."""
+    D = q.shape[-1]
+    logits = torch.einsum("bshd,bthd->bhst", q, k).float() / np.sqrt(D)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """The reference's ``causal_attention`` at positions 0..Sq-1 against
+    0..Sk-1, plain: ``gqa_attention`` over the position mask, one block
+    of ``CHUNK_Q`` queries at a time once max(Sq, Sk) reaches
+    ``CHUNKED_ATTN_THRESHOLD`` (and Sq divides into blocks), so the (Sq,
+    Sk) logits never materialise in full.  The encoder-decoder's
+    attention, which the reference computes outside any Pallas kernel."""
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    qpos = torch.arange(Sq, device=q.device)[None, :].expand(B, Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :].expand(B, Sk)
+    if max(Sq, Sk) < CHUNKED_ATTN_THRESHOLD or Sq <= CHUNK_Q or Sq % CHUNK_Q:
+        return gqa_attention(q, k, v,
+                             attention_mask(qpos, kpos, causal=causal))
+    return torch.cat([
+        gqa_attention(q[:, i:i + CHUNK_Q], k, v,
+                      attention_mask(qpos[:, i:i + CHUNK_Q], kpos,
+                                     causal=causal))
+        for i in range(0, Sq, CHUNK_Q)], dim=1)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,9 +16,22 @@ sliding-window, with optional QKV biases, or DeepSeek's MLA; SSM layers
 are Mamba-2 SSD blocks (``models/ssm.py``); each MLP is dense (gated SiLU
 or the two-matrix GELU, by ``cfg.mlp_kind``), a mixture of experts
 (``moe_impl`` ``dense`` | ``dropless``; the reference's rule picks
-``dropless`` from d_model 1024) or none.  Encoder-decoder models and the
-image/audio front ends raise ``NotImplementedError`` (ROADMAP.md Queue 1
-item 13).
+``dropless`` from d_model 1024) or none.  A vision-language model
+(llava) takes precomputed patch embeddings, ``image_embeds`` (B, P, D),
+placed before the token embeddings, as in the reference, whose vision
+tower is a stub too.  Encoder-decoder configs build
+``models/encdec.py::EncDecLM`` instead.
+
+``loss`` is the reference's next-token cross-entropy over the text
+positions, with the optional ``loss_mask``, chunked CE when
+``cfg.loss_chunk`` divides S - 1 (each chunk's fp32 logits rebuilt in
+backward by ``torch.utils.checkpoint``), and the MoE layers' router aux
+loss weighted by ``router_aux_loss_coef``.  Its backbone rematerialises
+each repeat of a repeating segment in backward, as the reference's
+``jax.checkpoint`` does (``cfg.remat``: ``full`` keeps nothing, ``dots``
+keeps the matmul outputs): memory, not numbers.  It reads the module's
+weights, so ``train/trainer.py`` binds the cast master weights with
+``torch.func.functional_call`` and differentiates inside that call.
 
 ``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the GQA
 attention of full sequences (``forward``, ``forward_hidden``,
@@ -52,11 +65,15 @@ entries to page P - 1 explicitly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -175,16 +192,35 @@ CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"),
                 "ssm": ("conv", "state")}
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    unported = {"encdec": cfg.encdec is not None or cfg.family == "encdec",
-                "image/audio front end": bool(cfg.num_image_patches
-                                              or cfg.audio_frontend)}
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP.md Queue "
-            "1 item 13, other model families); the port runs decoder-only "
-            "models of GQA, MLA and SSM layers")
+# matmuls whose outputs ``remat="dots"`` keeps (JAX's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(remat: str):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat``: ``full`` keeps
+    nothing (the default context), ``dots`` keeps the matmul outputs,
+    ``nothing`` (None) does not rematerialise."""
+    if remat == "nothing":
+        return None
+    if remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _keep_dots)
+    if remat == "full":
+        return noop_context_fn
+    raise ValueError(f"remat {remat!r} not in full | dots | nothing")
+
+
+def _check_decoder_only(cfg: ModelConfig) -> None:
+    if cfg.encdec is not None or cfg.family == "encdec":
+        raise ValueError(f"{cfg.name} is an encoder-decoder config: "
+                         "build_model gives it an EncDecLM "
+                         "(models/encdec.py)")
 
 
 class DecoderBlock(nn.Module):
@@ -238,7 +274,7 @@ class DecoderLM(nn.Module):
                  attention_impl: str = "auto",
                  moe_impl: Optional[str] = None):
         super().__init__()
-        _check_ported(cfg)
+        _check_decoder_only(cfg)
         if attention_impl not in ("auto", "cuda", "ref"):
             raise ValueError(f"attention_impl {attention_impl!r} not in "
                              "auto | cuda | ref")
@@ -263,10 +299,15 @@ class DecoderLM(nn.Module):
         self.head = (None if cfg.tie_embeddings
                      else param(cfg.d_model, cfg.vocab_size))
         # one block per layer in plan order; ``_at[i]`` is layer i's
-        # (leaf base "{segment}/{position}", repeat index, segment repeats)
-        blocks, self._at = [], []
+        # (leaf base "{segment}/{position}", repeat index, segment repeats);
+        # ``_spans`` each repeat's (first, end) layers and whether its
+        # segment repeats (the unit the reference rematerialises)
+        blocks, self._at, self._spans = [], [], []
         for seg in self.plan:
             for r in range(seg.repeats):
+                self._spans.append((len(blocks),
+                                    len(blocks) + len(seg.pattern),
+                                    seg.repeats > 1))
                 for pos, sl in enumerate(seg.pattern):
                     blocks.append(DecoderBlock(cfg, dt, dev, sl))
                     self._at.append((f"{seg.name}/{pos}", r, seg.repeats))
@@ -303,8 +344,14 @@ class DecoderLM(nn.Module):
         return self
 
     # ------------------------------------------------------------------
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens[tokens.long()]
+    def embed(self, tokens: torch.Tensor,
+              image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, after the patch embeddings (cast to the
+        weights' dtype) when ``image_embeds`` (B, P, D) is given."""
+        x = self.embed_tokens[tokens.long()]
+        if image_embeds is not None:
+            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -314,19 +361,19 @@ class DecoderLM(nn.Module):
 
     def _mlp(self, blk, x):
         """The layer's MLP half: norm, dense MLP or experts, residual (none
-        for a pure SSM).  The MoE aux loss is dropped (serving; training
-        will read it)."""
+        for a pure SSM).  Returns (x, the MoE router's aux loss or None);
+        serving drops the aux, ``loss`` sums it."""
         if blk.mlp == "none":
-            return x
+            return x, None
         h = L.rms_norm(x, blk.mlp_norm, self.cfg.norm_eps)
         if blk.mlp == "moe":
-            y, _ = L.moe_apply(self.cfg, blk, h, impl=self.moe_impl)
-            return x + y
-        return x + L.dense_mlp_apply(self.cfg, blk, h)
+            y, aux = L.moe_apply(self.cfg, blk, h, impl=self.moe_impl)
+            return x + y, aux
+        return x + L.dense_mlp_apply(self.cfg, blk, h), None
 
     def _layer_fwd(self, blk, x, positions):
         """One layer over a full sequence: (x, the values its cache keeps:
-        (k, v), (c_kv, k_rope) or (conv, state))."""
+        (k, v), (c_kv, k_rope) or (conv, state), the MoE aux or None)."""
         cfg = self.cfg
         if blk.kind == "ssm":
             h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
@@ -344,7 +391,8 @@ class DecoderLM(nn.Module):
                                       impl=self.attention_impl)
             x = x + L.attention_out(blk, attn)
             new = (k, v)
-        return self._mlp(blk, x), new
+        x, aux = self._mlp(blk, x)
+        return x, new, aux
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device)[None, :].expand(B, S)
@@ -357,13 +405,83 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V)."""
-        x = self.embed(tokens)
-        positions = self._positions(*tokens.shape)
-        for blk in self.layers:
-            x, _ = self._layer_fwd(blk, x, positions)
-        return self.unembed(x)
+    def forward(self, tokens: torch.Tensor, *,
+                image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, P + S, V), the P patch positions of
+        ``image_embeds`` (B, P, D) first."""
+        return self.unembed(self._backbone(tokens, image_embeds)[0])
+
+    def _layers_fwd(self, lo, hi, positions, x):
+        """Layers lo..hi-1 over a full sequence: (x, their summed aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.layers[lo:hi]:
+            x, _, a = self._layer_fwd(blk, x, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def _backbone(self, tokens: torch.Tensor,
+                  image_embeds: Optional[torch.Tensor] = None):
+        """Embedding and every layer, before the final norm: (hidden (B,
+        P + S, D), the MoE aux summed over layers).  Under autograd each
+        repeat of a repeating segment is rematerialised in backward
+        (``cfg.remat``)."""
+        x = self.embed(tokens, image_embeds)
+        positions = self._positions(*x.shape[:2])
+        remat = _remat_context(self.cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo, hi, repeated in self._spans:
+            fn = functools.partial(self._layers_fwd, lo, hi, positions)
+            if repeated and remat is not None and torch.is_grad_enabled():
+                x, a = checkpoint(fn, x, use_reentrant=False,
+                                  context_fn=remat)
+            else:
+                x, a = fn(x)
+            aux = aux + a
+        return x, aux
+
+    def loss(self, batch: dict):
+        """Next-token CE, as the reference's ``loss``.  ``batch``: tokens
+        (B, S) int, optional loss_mask (B, S) and image_embeds (B, P, D)
+        (tensors on this model's device).  The target of position i is
+        token i + 1, over the text positions only.  With ``cfg.loss_chunk``
+        dividing S - 1 (and below it) the fp32 logits exist one chunk at a
+        time and are rebuilt in backward.  Returns (total, {loss, aux_loss,
+        total_loss}); total adds ``router_aux_loss_coef`` x the MoE aux."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        hidden, aux = self._backbone(tokens, batch.get("image_embeds"))
+        n_img = hidden.shape[1] - tokens.shape[1]
+        if n_img > 0:
+            hidden = hidden[:, n_img:]                    # text positions
+        targets = tokens[:, 1:].long()
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(targets.shape, dtype=torch.float32,
+                           device=hidden.device) if mask is None
+                else mask[:, 1:].float())
+        hid = hidden[:, :-1]
+        Sm1 = hid.shape[1]
+        chunk = cfg.loss_chunk
+        if chunk and Sm1 > chunk and Sm1 % chunk == 0:
+            ce_sum = torch.zeros((), dtype=torch.float32, device=hid.device)
+            for i in range(0, Sm1, chunk):
+                part = slice(i, i + chunk)
+                ce_sum = ce_sum + checkpoint(
+                    self._ce_sum, hid[:, part], targets[:, part],
+                    mask[:, part], use_reentrant=False)
+        else:
+            ce_sum = self._ce_sum(hid, targets, mask)
+        loss = ce_sum / torch.clamp(mask.sum(), min=1.0)
+        coef = cfg.moe.router_aux_loss_coef if cfg.moe is not None else 0.0
+        total = loss + coef * aux
+        return total, {"loss": loss, "aux_loss": aux, "total_loss": total}
+
+    def _ce_sum(self, hid, targets, mask):
+        """Summed masked CE of hidden rows against their targets, fp32."""
+        logits = self.unembed(hid).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return ((logz - tgt) * mask).sum()
 
     def _prefix_depth(self, num_layers: int) -> int:
         """Layers that the reference's ``forward_hidden(num_layers)`` runs:
@@ -387,7 +505,7 @@ class DecoderLM(nn.Module):
         x = self.embed(tokens)
         positions = self._positions(*tokens.shape)
         for blk in self.layers[:self._prefix_depth(num_layers)]:
-            x, _ = self._layer_fwd(blk, x, positions)
+            x, _, _ = self._layer_fwd(blk, x, positions)
         return x
 
     # ------------------------------------------------------------------
@@ -452,23 +570,26 @@ class DecoderLM(nn.Module):
                 for k, (s, d) in self.cache_specs(batch, max_len).items()}
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, max_len: Optional[int] = None,
+    def prefill(self, tokens: torch.Tensor, *,
+                image_embeds: Optional[torch.Tensor] = None,
+                max_len: Optional[int] = None,
                 lengths: Optional[torch.Tensor] = None):
-        """Run the full prompt and build a slotted cache of ``max_len``
-        positions (a ring of ``min(window, max_len)`` slots under a sliding
-        window; an SSM layer keeps its final conv and SSD states).
-        Returns (last-position logits (B, V), cache, lengths); with
-        ``lengths`` (a right-padded batch) logits come from each row's
-        true last token.  A ring rotates by the padded length and a
-        recurrent state absorbs the pads, so the serving engine prefills
-        those models at exact lengths."""
-        B, S = tokens.shape
+        """Run the full prompt (after the patch embeddings of
+        ``image_embeds``, which take the first positions) and build a
+        slotted cache of ``max_len`` positions (a ring of ``min(window,
+        max_len)`` slots under a sliding window; an SSM layer keeps its
+        final conv and SSD states).  Returns (last-position logits (B, V),
+        cache, lengths); with ``lengths`` (a right-padded batch) logits
+        come from each row's true last token.  A ring rotates by the
+        padded length and a recurrent state absorbs the pads, so the
+        serving engine prefills those models at exact lengths."""
+        x = self.embed(tokens, image_embeds)
+        B, S = x.shape[:2]
         max_len = max_len or S
         cache = self.init_cache(B, max_len)
-        x = self.embed(tokens)
         positions = self._positions(B, S)
         for i, blk in enumerate(self.layers):
-            x, new = self._layer_fwd(blk, x, positions)
+            x, new, _ = self._layer_fwd(blk, x, positions)
             for leaf, val in zip(self._leaves_of(cache, i), new):
                 Sk = leaf.shape[1]
                 if blk.kind == "ssm":
@@ -606,7 +727,7 @@ class DecoderLM(nn.Module):
                 self._scatter(leaves[1], v, targets)
                 y = L.attention_out(blk, self._attend(
                     q, *leaves, positions, lengths, block_table, attn_impl))
-            x = self._mlp(blk, x + y)
+            x, _ = self._mlp(blk, x + y)
         return x
 
     def _ssm_cached(self, blk, h, leaves, decode):
@@ -723,5 +844,5 @@ class DecoderLM(nn.Module):
                     attn = decode_attention(q[:, 0], kc, vc, kv_len,
                                             impl=self.attention_impl)
                     y = L.attention_out(blk, attn[:, None])
-            x = self._mlp(blk, x + y)
+            x, _ = self._mlp(blk, x + y)
         return x

@@ -186,6 +186,12 @@ class ServingEngine:
                  tracer=None, metrics: Optional[MetricsRegistry] = None,
                  membership=None, device="cuda"):
         self.device = resolve_device(device)
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder model: the serving "
+                "engine does not serve it (nor does the reference's, which "
+                "asks cache_specs(1, max_len)); drive EncDecLM.prefill and "
+                "decode_step directly")
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked "
                              f"for {self.device}")

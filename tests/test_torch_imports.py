@@ -3,9 +3,10 @@ nor ``chip_smoke.py`` or the kernel benches (``scripts/*_bench.py``),
 imports JAX or anything of the JAX package
 (``repro``, ``repro.*``) or ``benchmarks``, checked on the AST; and the
 serving entry point, the attention kernels' modules, the model (its SSM
-block too), the block-reuse cache, the workload generators and the ported
-configs import in a process
-where ``jax`` cannot load."""
+block too), the encoder-decoder, the block-reuse cache, the workload
+generators, the training path (optimiser, schedule, trainer,
+checkpointer, synthetic data, tree utilities) and the ported configs
+import in a process where ``jax`` cannot load."""
 import ast
 import pathlib
 import subprocess
@@ -50,7 +51,15 @@ def test_serving_engine_imports_without_jax():
             "repro_torch.models.ssm, repro_torch.models.transformer, "
             "repro_torch.configs.deepseek_v2_lite_16b, "
             "repro_torch.configs.mamba2_2p7b, "
-            "repro_torch.configs.jamba_v01_52b; print('ok')")
+            "repro_torch.configs.jamba_v01_52b, "
+            "repro_torch.configs.llava_next_34b, "
+            "repro_torch.configs.whisper_small, repro_torch.models.encdec, "
+            "repro_torch.models.convert, repro_torch.models.registry, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.optim.schedule, repro_torch.train.trainer, "
+            "repro_torch.checkpoint.checkpointer, "
+            "repro_torch.data.pipeline, repro_torch.utils.tree; "
+            "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),

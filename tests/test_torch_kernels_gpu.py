@@ -14,7 +14,10 @@ none are checked against the kernels' own conventions.  Flash attention
 (K8) and flash-decode (K7) 1e-5 in fp32 and 2e-2 in bf16 (both versions
 keep fp32 softmax and PV; bf16 inputs, sums in another order, and the
 output rounded to bf16); a decode row with kv_len 0 is exact zeros in the
-kernel (the plain version averages V).  The IVF-PQ probe
+kernel (the plain version averages V).  K8 under autograd
+(``FlashAttention``, at the train path's and llava's shapes): the
+forward as above, the gradients within 1e-6 of plain autograd's on the
+same cotangent.  The IVF-PQ probe
 sums its scores in another order than the plain version (a lookup table
 per subspace): scores within 1e-4; probed lists and indices equal except
 on rows whose plain scores lie closer than 1e-5, but not equal, where the
@@ -543,6 +546,40 @@ def test_flash_attention_swa_shapes(gen, S, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+# K8 under autograd: (B, S, H, K, D) of the train path's launch (one
+# microbatch of llama3.2-1b) and of llava's prefill with its image patches
+GRAD_SHAPES = {"train": (4, 1025, 32, 8, 64), "llava": (2, 704, 56, 8, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(GRAD_SHAPES))
+def test_flash_attention_gradient(gen, shape, dtype):
+    """``FlashAttention``: one K8 launch forward (none in backward), the
+    output within ``TOL`` of the plain version, and for the same cotangent
+    the gradients of q, k and v within 1e-6 of plain autograd's (the
+    backward differentiates the plain version itself)."""
+    B, S, H, K, D = GRAD_SHAPES[shape]
+    q, k, v = _flash(gen, B, S, H, K, D, dtype)
+    dout = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    res = []
+    for impl in ("auto", "ref"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = LAUNCHES["flash_attention"]
+        out = flash_attention(*leaves, impl=impl)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] - n0 == (impl == "auto")
+        assert (type(out.grad_fn).__name__ == "FlashAttentionBackward") == (
+            impl == "auto")
+        res.append((out.detach(), grads))
+    (ok, gk), (op, gp) = res
+    torch.testing.assert_close(ok.float(), op.float(), atol=TOL[dtype],
+                               rtol=0)
+    for a, b in zip(gk, gp):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-6, rtol=0)
 
 
 def _bf16_steps(out, ref):

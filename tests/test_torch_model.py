@@ -55,7 +55,7 @@ SLOTTED = MODELS + [_case("h2o-danube3-4b", True)] + RECURRENT
 INVALID = 2 ** 30
 PORTED = ["coic-paper", "llama3.2-1b", "h2o-danube3-4b", "granite-20b",
           "qwen2-72b", "granite-moe-3b-a800m", "deepseek-v2-lite-16b",
-          "mamba2-2.7b", "jamba-v0.1-52b"]
+          "mamba2-2.7b", "jamba-v0.1-52b", "llava-next-34b", "whisper-small"]
 
 
 def _fields(cfg):
@@ -103,10 +103,13 @@ def test_layer_plan_equals_reference(name):
 
 
 def test_unported_config_and_missing_gpu_raise():
-    with pytest.raises(NotImplementedError):
-        torch_get_config("whisper-small")
-    with pytest.raises(NotImplementedError):
-        torch_get_config("llava-next-34b")
+    """Every reference config is ported now: an unknown name raises, and
+    an encoder-decoder config refuses the decoder-only model."""
+    from repro_torch.models.transformer import DecoderLM
+    with pytest.raises(ValueError):
+        torch_get_config("no-such-model")
+    with pytest.raises(ValueError):
+        DecoderLM(torch_get_config("whisper-small"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             build_model(torch_get_config("coic-paper"))

@@ -24,6 +24,11 @@ VARIANTS = {
     # the reduced jamba at two repeats of its 4-layer pattern: stacked
     # leaves of a multi-position pattern
     "l8": dict(num_layers=8),
+    # training: chunked CE (S - 1 = 32 in chunks of 8), and each repeat
+    # rematerialised in backward (keeping nothing, or the matmuls)
+    "chunk8": dict(loss_chunk=8),
+    "remat": dict(remat="full"),
+    "dots": dict(remat="dots", loss_chunk=8),
 }
 # leaves that start at a constant (zero biases; the SSM block's decay,
 # step bias, skip, conv bias and norm; MLA's latent norm), moved by a
