@@ -98,7 +98,27 @@ Phases, one line each; any failure raises and exits non-zero:
                against ``decode_full``; 4 bf16 ``Trainer`` steps of
                ``EncDecLM.loss``; no kernel (plain attention, as in the
                reference);
- 17. e2e     — the kernel path against the plain path, in fp32 (TF32
+ 17. mesh    — the multi-card slice on 4 gloo ranks sharing the card
+               (spawned; their collectives of CUDA tensors staged through
+               host memory): (a) a 4-node cooperative cluster on a cache
+               mesh (llama3.2-1b's 2048-wide descriptors, 512 slots,
+               threshold 0.98; 3 waves, a node kill, a surviving lookup on
+               a 3-rank mesh) against the same cluster without a mesh
+               (hits, tiers, owners, scores, payloads and stats equal, bit
+               for bit) and every collective peer probe bit-equal to one
+               pooled K4 launch; (b) sharded training of llama3.2-1b (full
+               width, 2 layers) on (data 2, model 2), fp32 within 1e-5 of
+               the one-rank step, bf16 within 2e-2 / 2e-3, every K8
+               launch at 16/4 local heads held; (c) elastic 4 -> 2 data
+               shards at step 3 with a resharded restore from a checkpoint
+               under the git-ignored ``build/``; (d) the compressed
+               cross-pod step on (pod 2, data 1, model 2), coic-paper,
+               within 0.05 of the exact loss, where the untrained weights
+               end more than 0.05 from it; (e)
+               granite-moe's expert-parallel MoE layer at full width
+               against the dense dispatch; K4 and K8 timed at the phase's
+               shapes;
+ 18. e2e     — the kernel path against the plain path, in fp32 (TF32
                off), decoded tokens and sources identical: coic-paper
                attn_impl "paged" vs "gather" on one cluster, lookup_impl
                "auto" vs "ref" on the federated waves, then the slotted
@@ -130,6 +150,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -216,6 +237,7 @@ def main() -> None:
     train_launches, train_held = phase_train(torch)
     families["train"] = (train_launches, None, train_held)
     phase_whisper(torch)
+    mesh_paths = phase_mesh(torch)
     t_phase = time.perf_counter()
     # each kernel's launches on the path that runs it: the single-cluster
     # serve path (K1-K3, K5), the federated path (K6), the surviving-shard
@@ -253,6 +275,8 @@ def main() -> None:
                 k["paths"][path] = {"launches": counts[k["name"]],
                                     "requests": n_req,
                                     **held.get(k["name"], {})}
+        if k["name"] in mesh_paths:
+            k["paths"]["mesh"] = mesh_paths[k["name"]]
     phase_e2e(torch)
     phase_federated_e2e(torch)
     phase_slotted_e2e(torch)
@@ -1788,14 +1812,15 @@ SIM_KERNELS = ("similarity_topk_batched", "similarity_lookup",
                "similarity_topk_touch")
 
 
-def capture_similarity():
-    """Patch K1-K3's wrappers to keep every launch of the path about to
-    run: its arguments copied (the cache's keys and LRU state change
-    later) and its outputs.  Returns (store, restore)."""
+def capture_similarity(names=SIM_KERNELS):
+    """Patch the similarity kernels' wrappers (K1-K3 by default) to keep
+    every launch of the path about to run: its arguments copied (the
+    cache's keys and LRU state change later) and its outputs.  Returns
+    (store, restore)."""
     import repro_torch.kernels.similarity.ops as sim_ops
 
-    store = {name: [] for name in SIM_KERNELS}
-    orig = {name: getattr(sim_ops, f"{name}_cuda") for name in SIM_KERNELS}
+    store = {name: [] for name in names}
+    orig = {name: getattr(sim_ops, f"{name}_cuda") for name in names}
 
     def keep(kept, fn):
         def call(*args):
@@ -1814,18 +1839,20 @@ def capture_similarity():
 
 
 def hold_similarity(torch, name, calls):
-    """Every launch of K1-K3 (``name``) a path made, held against the
+    """Every launch of K1-K4 (``name``) a path made, held against the
     plain version on the same tensors: indices and LRU state equal,
     scores within 1e-6; a K2 row with no
     valid slot at the kernel's own convention (index 0, score -1e30)."""
     from repro_torch.kernels.similarity.ref import (
         similarity_lookup_ref, similarity_topk_batched_ref,
-        similarity_topk_touch_ref)
+        similarity_topk_ref, similarity_topk_touch_ref)
 
     err = 0.0
     for args, out in calls:
         if name == "similarity_topk_batched":
             ref = similarity_topk_batched_ref(*args)
+        elif name == "similarity_topk":
+            ref = similarity_topk_ref(*args)
         elif name == "similarity_lookup":
             ri, rs = similarity_lookup_ref(*args)
             empty = torch.isinf(rs)
@@ -2554,14 +2581,19 @@ def k8_device_ms(kern):
             sum(e.count for e in ks))
 
 
-def capture_flash():
-    """Patch K8's wrapper to keep its first launch (arguments and output);
-    returns (store, restore)."""
+def capture_flash(every=False):
+    """Patch K8's wrapper to keep its first launch, or with ``every`` each
+    launch (arguments and output); returns (store, restore)."""
     import repro_torch.kernels.flash_attention.ops as fa_ops
 
     store, orig = [], fa_ops.flash_attention_cuda
-    fa_ops.flash_attention_cuda = _keep_first(store, orig,
-                                              lambda *a, **kw: True)
+
+    def keep_every(*args, **kw):
+        out = orig(*args, **kw)
+        store.append((list(args), kw, out))
+        return out
+    fa_ops.flash_attention_cuda = keep_every if every else _keep_first(
+        store, orig, lambda *a, **kw: True)
 
     def restore():
         fa_ops.flash_attention_cuda = orig
@@ -2949,6 +2981,639 @@ def phase_whisper(torch):
     del model, state
     torch.cuda.empty_cache()
     print(f"whisper: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 18. mesh: four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+# the cache part: 4 nodes of the serve phase's edge cache (512 slots,
+# threshold 0.98, llama3.2-1b's 2048-wide PrefixDescriptor), 8 prompts
+# of 96 tokens per node per wave
+MESH_CACHE = dict(N=4, C=512, B=8, P=16, prompt=96, threshold=0.98)
+# the training parts: llama3.2-1b at its published widths cut to 2 layers
+MESH_TRAIN = dict(seq_len=257, global_batch=4, steps=3, peak_lr=1e-3,
+                  warmup_steps=2, total_steps=10)
+MESH_ELASTIC = dict(seq_len=129, global_batch=4, checkpoint_every=2,
+                    fail_at=3, steps=4)
+MESH_COMPRESSED = dict(config="coic-paper", seq_len=129, global_batch=4,
+                       steps=4)
+MESH_EP = dict(B=4, S=128, capacity_factor=4.0)
+MESH_DEADLINE_S = 900
+
+
+def mesh_waves(rng, N, B, n_new):
+    """Prompt ids of the cache part's three waves, (N, B) each: wave 1 all
+    new; wave 2 node g re-serves node g + 1's wave-1 prompts (peer hits)
+    beside new ones; wave 3 each node's own wave-1 prompts (local hits)
+    and wave 2's new ones served by another node."""
+    import numpy as np
+    w1 = np.arange(N * B).reshape(N, B)
+    w2 = np.roll(w1, -1, axis=0).copy()
+    w2[:, B // 2:] = N * B + np.arange(N * (B - B // 2)).reshape(N, -1)
+    w3 = w1.copy()
+    w3[:, B // 2:] = np.roll(w2[:, B // 2:], 1, axis=0)
+    assert n_new >= int(max(w.max() for w in (w1, w2, w3))) + 1
+    return [w1, w2, w3]
+
+
+def mesh_cache_inputs(torch):
+    """The cache part's descriptors, made once here (llama3.2-1b at full
+    width, random weights from seed 0, bf16, the descriptor prefix of 2
+    layers: K8): (descriptors (n, 2048) fp32 numpy, payloads, waves, K8's
+    launches and its first launch held)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.descriptor import PrefixDescriptor
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+
+    c = MESH_CACHE
+    N, B = c["N"], c["B"]
+    n = N * B + N * (B - B // 2)
+    model = build_model(get_config("llama3.2-1b"), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, model.cfg.vocab_size, size=(n, c["prompt"]))
+    store, restore = capture_flash()
+    reset_launches()
+    desc = PrefixDescriptor(model, k_layers=2)(
+        torch.as_tensor(tokens, device="cuda"))
+    torch.cuda.synchronize()
+    launches = LAUNCHES["flash_attention"]
+    restore()
+    assert launches > 0, "the descriptor prefix never launched K8"
+    held = hold_on_path(torch, "flash_attention", store[0])
+    payload = np.repeat(np.arange(n, dtype=np.float32)[:, None], c["P"], 1)
+    del model
+    torch.cuda.empty_cache()
+    return (desc.cpu().numpy(), payload, mesh_waves(rng, N, B, n), launches,
+            held)
+
+
+def _mesh_cache(torch, rank, desc, payload, waves):
+    """(a) The 4-node cluster on a 4-rank cache mesh, then the same cluster
+    without a mesh, each through the waves, ``kill_node(1)`` and a
+    surviving lookup of wave 1's prompts (a 3-rank cache mesh: ranks 0-2
+    run the collective, rank 3 the pooled probe).  Returns both runs'
+    results and the mesh run's launches and held K4 / K1 launches."""
+    import numpy as np
+
+    from repro_torch.core.cluster import ClusterConfig, CooperativeEdgeCluster
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_cache_mesh
+    from repro_torch.parallel.sharding import surviving_topk_lookup
+
+    c = MESH_CACHE
+    mesh = make_cache_mesh(c["N"], device="cuda")
+    mesh3 = make_cache_mesh(3, device="cuda")
+    cfg = ClusterConfig(num_nodes=c["N"], node_capacity=c["C"],
+                        key_dim=desc.shape[1], payload_dim=c["P"],
+                        threshold=c["threshold"])
+    import repro_torch.core.tiers as tiers
+    from repro_torch.parallel.sharding import cluster_topk_lookup
+
+    sharded = tiers.sharded_topk_lookup
+    pooled = []                     # (collective == one pooled K4 launch)
+    cur = {}
+
+    def held_sharded(q, keys, valid, k, mesh_, axis, impl="auto"):
+        out = sharded(q, keys, valid, k, mesh_, axis, impl=impl)
+        kept = cur["store"]["similarity_topk"]
+        n0 = len(kept)
+        ref = cluster_topk_lookup(q, keys, valid, k, impl=impl)
+        del kept[n0:]               # a launch to compare is not held
+        pooled.append(all(torch.equal(a, b) for a, b in zip(out, ref)))
+        return out
+    runs = {}
+    for on_mesh in (True, False):
+        store, restore = capture_similarity(("similarity_topk",
+                                             "similarity_topk_batched"))
+        cur["store"] = store
+        tiers.sharded_topk_lookup = held_sharded
+        reset_launches()
+        cl = CooperativeEdgeCluster(cfg, mesh=mesh if on_mesh else None,
+                                    device="cuda")
+        out = []
+        for ids in waves:
+            r = cl.lookup_grouped(desc[ids])
+            out.append(tuple(np.asarray(getattr(r, f)) for f in
+                             ("hit", "tier", "owner", "score", "value")))
+            for g in range(c["N"]):
+                miss = ~r.hit[g]
+                if miss.any():
+                    cl.insert(g, desc[ids[g][miss]], payload[ids[g][miss]])
+        cl.kill_node(1)
+        keys, valid, _ = cl._stacks()
+        q = torch.as_tensor(desc[waves[0].reshape(-1)], device="cuda")
+        idx, score = surviving_topk_lookup(
+            q, keys, valid, cl.node_alive, 1,
+            mesh3 if (on_mesh and rank < 3) else None)
+        out.append((idx.cpu().numpy(), score.cpu().numpy()))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        restore()
+        tiers.sharded_topk_lookup = sharded
+        # the pooled launches made to compare do not count
+        launches["similarity_topk"] -= len(pooled)
+        held = {k: hold_similarity(torch, k, v) for k, v in store.items()
+                if v}
+        runs[on_mesh] = (out, cl.stats(), launches, held, list(pooled))
+        pooled.clear()
+    return runs
+
+
+def _mesh_state(torch, model, tcfg):
+    """A fresh whole train state of ``model``'s weights."""
+    from repro_torch.models.convert import master_params
+    from repro_torch.train.trainer import TrainState, make_optimizer
+    p = master_params(model)
+    return TrainState(params=p, opt=make_optimizer(tcfg).init(p),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=model.device))
+
+
+def _mesh_llama(torch, dtype="float32"):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
+                              dtype=dtype)
+    return build_model(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _mesh_train(torch, rank):
+    """(b) The sharded step on (data 2, model 2): 3 fp32 steps, then 3
+    with bf16 compute; rank 0 also runs the one-rank step on the same
+    batches.  K8's launches per rank, each held against its plain
+    version at the rank's local heads."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import (TrainerConfig, make_train_step,
+                                           place_state, state_shardings)
+
+    t = MESH_TRAIN
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    model = _mesh_llama(torch)
+    data = SyntheticLMData(vocab_size=model.cfg.vocab_size,
+                           seq_len=t["seq_len"],
+                           global_batch=t["global_batch"])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        tcfg = TrainerConfig(peak_lr=t["peak_lr"],
+                             warmup_steps=t["warmup_steps"],
+                             total_steps=t["total_steps"],
+                             compute_dtype=dtype)
+        sh = state_shardings(model, mesh)
+        state = place_state(_mesh_state(torch, model, tcfg), sh)
+        step = make_train_step(model, tcfg, mesh, sh)
+        store, restore = capture_flash(every=True)
+        reset_launches()
+        losses = []
+        for i in range(t["steps"]):
+            state, m = step(state, data.batch_at(i))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        row = {"loss": losses, "launches": LAUNCHES["flash_attention"],
+               "heads": tuple(store[0][0][0].shape[2:3])
+               + tuple(store[0][0][1].shape[2:3])}
+        restore()
+        held = [hold_on_path(torch, "flash_attention", c) for c in store]
+        row["held"] = {"held": len(held), "max_abs_err": max(
+            h["max_abs_err"] for h in held)}
+        del state, store, held
+        if rank == 0:
+            one = make_train_step(model, tcfg)
+            s1 = _mesh_state(torch, model, tcfg)
+            l1 = []
+            for i in range(t["steps"]):
+                s1, m = one(s1, data.batch_at(i))
+                l1.append(float(m["loss"]))
+            row["one_rank"] = l1
+            del s1
+        torch.cuda.empty_cache()
+        out[dtype] = row
+    return out
+
+
+def _mesh_elastic(torch, rank):
+    """(c) ``ElasticTrainer``: 4 data shards, a checkpoint every 2 steps
+    under the git-ignored ``build/``, a failure at step 3 that shrinks to
+    2 shards, a restore of step 2 resharded, 4 steps in all."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.elastic import ElasticConfig, ElasticTrainer
+    from repro_torch.train.trainer import TrainerConfig
+
+    e = MESH_ELASTIC
+    model = _mesh_llama(torch)
+    tcfg = TrainerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20,
+                         compute_dtype="float32")
+    et = ElasticTrainer(
+        model, tcfg,
+        ElasticConfig(data_shards=4, model_shards=1,
+                      checkpoint_every=e["checkpoint_every"],
+                      checkpoint_dir=str(ROOT / "build" / "chip_mesh"
+                                         / "elastic")),
+        SyntheticLMData(vocab_size=model.cfg.vocab_size,
+                        seq_len=e["seq_len"], global_batch=e["global_batch"]),
+        failure_schedule={e["fail_at"]: 2}, device="cuda")
+    state, history = et.run(e["steps"])
+    out = {"events": et.events, "loss": [h["loss"] for h in history],
+           "step": None if state is None else int(state.step)}
+    del et, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_compressed(torch, rank):
+    """(d) The compressed cross-pod step on (pod 2, data 1, model 2), 4
+    steps (the state whole on every rank, as the reference's), then on
+    rank 0 the exact one-rank step on the same batches and the initial
+    weights' loss on each (a run that does not train).  The paper's own
+    model (coic-paper at its published widths and depth): at llama3.2-1b's
+    width the per-tensor int8 scale rounds nearly all of the 262 M-entry
+    tied embedding's gradient to zero, and 4 steps of error feedback do
+    not catch up (``scripts/compress_probe.py``, PERF.md §6)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import (TrainerConfig,
+                                           init_compression_errors,
+                                           loss_and_grads, make_train_step,
+                                           make_train_step_compressed,
+                                           to_device)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    c = MESH_COMPRESSED
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), device="cuda")
+    model = build_model(
+        dataclasses.replace(get_config(c["config"]), dtype="float32"),
+        device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    tcfg = TrainerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20,
+                         compute_dtype="float32")
+    data = SyntheticLMData(vocab_size=model.cfg.vocab_size,
+                           seq_len=c["seq_len"],
+                           global_batch=c["global_batch"])
+    step_c = make_train_step_compressed(model, tcfg, mesh)
+    err = init_compression_errors(model, mesh, 2)
+    state = _mesh_state(torch, model, tcfg)
+    lc = []
+    for i in range(c["steps"]):
+        state, err, m = step_c(state, err, data.batch_at(i))
+        lc.append(float(m["loss"]))
+    del state, err
+    out = {"loss": lc}
+    if rank == 0:
+        exact, s1, lr = make_train_step(model, tcfg), _mesh_state(
+            torch, model, tcfg), []
+        for i in range(c["steps"]):
+            s1, m = exact(s1, data.batch_at(i))
+            lr.append(float(m["loss"]))
+        out["exact"] = lr
+        p0 = _mesh_state(torch, model, tcfg).params
+        out["still"] = [float(loss_and_grads(
+            model, p0, to_device(data.batch_at(i), model.device),
+            torch.float32)[1]["loss"]) for i in range(c["steps"])]
+        del s1, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_ep(torch, rank):
+    """(e) granite-moe-3b-a800m's MoE layer at full width (40 experts,
+    top-8, d_model 1536, d_ff_expert 512), fp32, random weights from seed
+    0: ``moe_apply_dropless_ep`` on (data 2, model 2) (40 % 2 == 0: the
+    expert-sharded route) against ``moe_apply_dense`` on one rank, and the
+    gradients of its output's sum finite."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import set_activation_sharder
+
+    p = MESH_EP
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              dtype="float32")
+    m = cfg.moe
+    E, D, F = m.num_experts, cfg.d_model, m.d_ff_expert
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = types.SimpleNamespace(
+        router=L.init_leaf((D, E), "small_normal", torch.float32, g, "cuda"),
+        we_gate=L.init_leaf((E, D, F), "normal", torch.float32, g, "cuda"),
+        we_up=L.init_leaf((E, D, F), "normal", torch.float32, g, "cuda"),
+        we_down=L.init_leaf((E, F, D), "normal", torch.float32, g, "cuda"))
+    for t in vars(w).values():
+        t.requires_grad_()
+    x = torch.randn(p["B"], p["S"], D, generator=g, device="cuda")
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    with set_activation_sharder(mesh):
+        y, aux = L.moe_apply_dropless_ep(cfg, w, x, p["capacity_factor"])
+    grads = torch.autograd.grad(y.sum(), list(vars(w).values()))
+    out = {"finite": all(bool(torch.isfinite(t).all()) for t in grads)}
+    if rank == 0:
+        with torch.no_grad():
+            yd, auxd = L.moe_apply_dense(cfg, w, x)
+        tol = (y.detach() - yd).abs() - 2e-4 * yd.abs()
+        out.update(y_excess=float(tol.max()), y_err=float(
+            (y.detach() - yd).abs().max()), aux=float(aux),
+            aux_dense=float(auxd))
+    return out
+
+
+def mesh_rank(rank, world, init, out_dir, inputs):
+    """One rank of the mesh phase: a gloo process on the card (the ranks
+    share it; NCCL refuses two ranks on one device), every part in turn,
+    each part's seconds; the results pickled for the parent."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    res = {}
+    for part, fn in (("cache", lambda: _mesh_cache(torch, rank, *inputs)),
+                     ("train", lambda: _mesh_train(torch, rank)),
+                     ("elastic", lambda: _mesh_elastic(torch, rank)),
+                     ("compressed", lambda: _mesh_compressed(torch, rank)),
+                     ("ep", lambda: _mesh_ep(torch, rank))):
+        t0 = time.perf_counter()
+        res[part] = fn()
+        dist.barrier()
+        res[part + "_s"] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"mesh: part {part} done on every rank, "
+                  f"{res[part + '_s']:.1f} s; peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+                  "rank 0", flush=True)
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _spawn_mesh(inputs, out_dir: Path):
+    """Run ``mesh_rank`` on ``MESH_RANKS`` spawned processes; a failed
+    rank, or the deadline, fails the phase (and every rank is stopped)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    init = "file://" + str(out_dir / "store")
+    ctx = mp.start_processes(mesh_rank, args=(MESH_RANKS, init, str(out_dir),
+                                              inputs),
+                             nprocs=MESH_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + MESH_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"mesh: ranks still running after "
+                                     f"{MESH_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(MESH_RANKS):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def phase_mesh(torch):
+    """The multi-card slice on the one card: 4 gloo ranks share it (their
+    collectives of CUDA tensors staged through host memory, explicitly,
+    ``parallel/collectives.py``), each running (a) the cooperative cluster
+    on a cache mesh against the same cluster without one, bit-equal; (b)
+    sharded training of llama3.2-1b (full width, 2 layers) on (data 2,
+    model 2), fp32 losses within 1e-5 (relative) of the one-rank step and
+    bf16 within 2e-2 / 2e-3, K8 launched on every rank at its local heads
+    (16 of 32, 4 of 8 KV heads) and held; (c) an elastic 4 -> 2 shrink
+    with a resharded restore; (d) the compressed cross-pod step
+    (coic-paper) within 0.05 of the exact step's loss; (e)
+    expert-parallel MoE at granite-moe's width against the dense
+    dispatch.  Returns {kernel: the mesh path's launches per rank and
+    held rows}."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.kernels.similarity import similarity_topk
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    desc, payload, waves, k8_parent, k8_held = mesh_cache_inputs(torch)
+    print(f"mesh: {MESH_RANKS} gloo ranks share "
+          f"{torch.cuda.get_device_name(0)}; their collectives of CUDA "
+          "tensors are staged through host memory (.cpu(), the collective, "
+          ".to(device))", flush=True)
+    res = _spawn_mesh((desc, payload, waves), out_dir)
+
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    # (a) the cache: every rank against the same cluster without a mesh
+    k4, k1, score_err, n_pooled = [], [], 0.0, []
+    for r, rr in enumerate(res):
+        (m_out, m_stats, m_l, m_held, m_pool), (p_out, p_stats, _, _, _) = (
+            rr["cache"][True], rr["cache"][False])
+        for w, (a, b) in enumerate(zip(m_out, p_out)):
+            names = (("hit", "tier", "owner", "score", "value")
+                     if len(a) == 5 else ("idx", "score"))
+            for f, x, y in zip(names, a, b):
+                if f == "score":
+                    both = np.isfinite(x) & np.isfinite(y)
+                    score_err = max(score_err, float(np.max(
+                        np.abs(x - y), where=both, initial=0)))
+                check(np.array_equal(x, y), f"(a) rank {r} wave {w} {f}")
+        check(m_stats == p_stats, f"(a) rank {r} stats")
+        check(all(m_pool) and len(m_pool) > 0,
+              f"(a) rank {r}: a collective probe differs from one pooled "
+              f"K4 launch ({m_pool})")
+        n_pooled.append(len(m_pool))
+        check(m_l["similarity_topk"] > 0, f"(a) rank {r}: K4 never launched")
+        k4.append((m_l["similarity_topk"], m_held.get("similarity_topk", {
+            "held": 0, "max_abs_err": float("nan")})))
+        k1.append((m_l["similarity_topk_batched"],
+                   m_held["similarity_topk_batched"]))
+        for a, b in zip(m_out, res[0]["cache"][True][0]):
+            for x, y in zip(a, b):
+                check(np.array_equal(x, y), f"(a) rank {r} differs from 0")
+    tiers = res[0]["cache"][True][1]["ladder"]["tier_counts"]
+    print(f"mesh: (a) cache: 4 nodes x {MESH_CACHE['C']} slots, D "
+          f"{desc.shape[1]}, 3 waves + kill_node(1) + a surviving lookup: "
+          f"tiers {tiers}; against the cluster without a mesh (K1 pooled): "
+          f"hits, tiers, owners, payloads, stats "
+          f"{'equal' if not problems else 'see below'}, scores bit-equal: "
+          f"{score_err == 0.0} (max |diff| {score_err:.3g}); every "
+          f"collective probe bit-equal to one pooled K4 launch: "
+          f"{all(all(rr['cache'][True][4]) for rr in res)} "
+          f"({n_pooled} probes per rank); K4 launches per rank "
+          f"{[n for n, _ in k4]}, held {[h['held'] for _, h in k4]} (max "
+          f"|score err| {max(h['max_abs_err'] for _, h in k4):.3g}); K1 per "
+          f"rank {[n for n, _ in k1]}; {res[0]['cache_s']:.1f} s",
+          flush=True)
+
+    # (b) sharded training
+    tr = [rr["train"] for rr in res]
+    f32, one = tr[0]["float32"], tr[0]["float32"]["one_rank"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(f32["loss"], one))
+    for r, t in enumerate(tr):
+        check(t["float32"]["loss"] == f32["loss"], f"(b) rank {r} fp32 "
+              "losses differ from rank 0's")
+        check(t["bfloat16"]["loss"] == tr[0]["bfloat16"]["loss"],
+              f"(b) rank {r} bf16 losses differ from rank 0's")
+        check(t["float32"]["heads"] == (16, 4),
+              f"(b) rank {r} K8 heads {t['float32']['heads']}")
+        check(t["float32"]["launches"] > 0 and t["bfloat16"]["launches"] > 0,
+              f"(b) rank {r}: K8 never launched")
+        check(all(np.isfinite(t[d]["loss"]).all() for d in t),
+              f"(b) rank {r}: a loss is not finite")
+    check(rel <= 1e-5, f"(b) fp32 losses {rel:.3g} from one rank (1e-5)")
+    for a, b in zip(tr[0]["bfloat16"]["loss"], tr[0]["bfloat16"]["one_rank"]):
+        check(abs(a - b) <= 2e-3 + 2e-2 * abs(b), f"(b) bf16 {a} vs {b}")
+    for r, t in enumerate(tr):
+        for d in t:
+            check(t[d]["held"]["held"] == t[d]["launches"],
+                  f"(b) rank {r} {d}: {t[d]['held']['held']} of "
+                  f"{t[d]['launches']} K8 launches held")
+    k8 = [(t["float32"]["launches"] + t["bfloat16"]["launches"],
+           {"held": t["float32"]["held"]["held"]
+            + t["bfloat16"]["held"]["held"],
+            "max_abs_err": max(t[d]["held"]["max_abs_err"] for d in t)})
+          for t in tr]
+    print(f"mesh: (b) train: llama3.2-1b (full width, 2 layers) on (data 2, "
+          f"model 2): fp32 losses {f32['loss']} vs one rank {one} (max rel "
+          f"{rel:.3g}, held 1e-5); bf16 {tr[0]['bfloat16']['loss']} vs "
+          f"{tr[0]['bfloat16']['one_rank']} (held 2e-2 / 2e-3); K8 at "
+          f"{tr[0]['float32']['heads']} local heads, launches per rank "
+          f"{[n for n, _ in k8]}, held {[h['held'] for _, h in k8]} (fp32 "
+          f"within {max(t['float32']['held']['max_abs_err'] for t in tr):.3g}"
+          f", bf16 within "
+          f"{max(t['bfloat16']['held']['max_abs_err'] for t in tr):.3g}); "
+          f"{res[0]['train_s']:.1f} s", flush=True)
+
+    # (c) elastic
+    el = [rr["elastic"] for rr in res]
+    e = MESH_ELASTIC
+    for r, x in enumerate(el):
+        check(x["events"][0] == (f"step {e['fail_at']}: reconfigure to 2 "
+                                 "data shards"), f"(c) rank {r} {x['events']}")
+        if r < 2:
+            check(x["step"] == e["steps"] and x["events"][1] ==
+                  f"restored step {e['fail_at'] - 1} onto new mesh"
+                  and np.isfinite(x["loss"]).all(), f"(c) rank {r} {x}")
+        else:
+            check(x["step"] is None and "outside" in x["events"][1],
+                  f"(c) rank {r} {x}")
+    lo = el[0]["loss"]
+    replay = abs(lo[e["fail_at"]] - lo[e["fail_at"] - 1]) / abs(
+        lo[e["fail_at"] - 1]) if len(lo) > e["fail_at"] else float("nan")
+    check(replay <= 1e-5, f"(c) the replayed step {replay:.3g} from its "
+          "first run (1e-5)")
+    print(f"mesh: (c) elastic: events {el[0]['events']} (ranks 2, 3: "
+          f"{el[2]['events'][1:]!r}); losses {lo} (the restored step's "
+          f"replay within {replay:.3g} of its first run, held 1e-5); "
+          f"{res[0]['elastic_s']:.1f} s", flush=True)
+
+    # (d) compressed
+    cp = res[0]["compressed"]
+    diff = abs(cp["loss"][-1] - cp["exact"][-1])
+    check(all(rr["compressed"]["loss"] == cp["loss"] for rr in res),
+          "(d) ranks differ")
+    check(diff < 0.05, f"(d) compressed {diff:.3g} from exact (0.05)")
+    # the limit must be able to fail a step that does not train
+    still = abs(cp["still"][-1] - cp["exact"][-1])
+    check(still > 0.05, f"(d) a run that does not train ends {still:.3g} "
+          "from exact, inside the 0.05 limit")
+    print(f"mesh: (d) compressed: {MESH_COMPRESSED['config']} on (pod 2, "
+          f"data 1, model 2): losses "
+          f"{cp['loss']} vs exact {cp['exact']} (last |diff| {diff:.3g}, held "
+          f"0.05); the initial weights on the same batches {cp['still']} "
+          f"(last {still:.3g} from exact, must exceed 0.05); "
+          f"{res[0]['compressed_s']:.1f} s", flush=True)
+
+    # (e) expert-parallel MoE
+    ep = res[0]["ep"]
+    check(all(rr["ep"]["finite"] for rr in res), "(e) a gradient not finite")
+    check(ep["y_excess"] <= 2e-5, f"(e) output {ep}")
+    check(abs(ep["aux"] - ep["aux_dense"]) <= 1e-4 * abs(ep["aux_dense"]),
+          f"(e) aux {ep}")
+    print(f"mesh: (e) ep: granite-moe (40 experts top-8, d_model 1536) on "
+          f"(data 2, model 2), expert-sharded: output within "
+          f"{ep['y_err']:.3g} of the dense dispatch (held 2e-4 rel + 2e-5), "
+          f"aux {ep['aux']:.7f} vs {ep['aux_dense']:.7f}; gradients finite; "
+          f"{res[0]['ep_s']:.1f} s", flush=True)
+    for p in problems:
+        print(f"mesh: FAILED {p}", flush=True)
+    assert not problems, f"mesh: {len(problems)} checks failed"
+
+    # K4 and K8 at the mesh path's shapes, timed here (one process)
+    timer = Timer(torch)
+    c = MESH_CACHE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.as_tensor(desc[waves[0].reshape(-1)], device="cuda")
+    keys = torch.nn.functional.normalize(torch.randn(
+        c["C"], desc.shape[1], generator=g, device="cuda"), dim=1)
+    valid = torch.ones(c["C"], dtype=torch.bool, device="cuda")
+    Q, C, D = q.shape[0], c["C"], desc.shape[1]
+    kt = keys.t().contiguous()
+    b_ms, b_by = bound(Q * D * 4 + C * D * 4 + C + Q * 8, 2.0 * Q * C * D,
+                       "float32")
+    k4_row = {"shape": f"Q={Q} C={C} D={D} k=1 fp32 (one shard)",
+              **times(timer, lambda: similarity_topk(q, keys, valid, 1),
+                      lambda: torch.topk(q @ kt, 1)),
+              "plain_ms": timer(lambda: similarity_topk(q, keys, valid, 1,
+                                                        impl="ref")),
+              "bound_ms": b_ms, "bound_by": b_by}
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    t = MESH_TRAIN
+    B = t["global_batch"] // 2
+    qa = torch.randn(B, t["seq_len"], 16, 64, generator=g, device="cuda")
+    ka, va = (torch.randn(B, t["seq_len"], 4, 64, generator=g,
+                          device="cuda") for _ in range(2))
+    kw = dict(causal=True, window=0)
+    k8_row = hold_on_path(torch, "flash_attention",
+                          ((qa, ka, va), kw, flash_attention_cuda(
+                              qa, ka, va, **kw)), timed=True)
+    print(f"mesh: K4 at the cache part's shape ({k4_row['shape']}): "
+          f"{times_text(k4_row)}; K8 at a train rank's shape "
+          f"({k8_row['shape']}): {times_text(k8_row)}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"similarity_topk": {
+                "launches_per_rank": [n for n, _ in k4],
+                "held_per_rank": [h["held"] for _, h in k4],
+                "max_abs_err": max(h["max_abs_err"] for _, h in k4),
+                **k4_row},
+            "similarity_topk_batched": {
+                "launches_per_rank": [n for n, _ in k1],
+                "held_per_rank": [h["held"] for _, h in k1],
+                "max_abs_err": max(h["max_abs_err"] for _, h in k1)},
+            "flash_attention": {
+                "launches_per_rank": [n for n, _ in k8],
+                "held_per_rank": [h["held"] for _, h in k8],
+                "launches_parent": k8_parent,
+                "held_parent": k8_held,
+                "max_abs_err": max(h["max_abs_err"] for _, h in k8),
+                **{k: v for k, v in k8_row.items() if k != "max_abs_err"}}}
 
 
 if __name__ == "__main__":

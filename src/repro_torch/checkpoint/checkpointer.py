@@ -17,8 +17,12 @@ A checkpoint written by either package restores in the other: a
 its leaves are named and shaped alike (``params__SLASH__blocks__SLASH__0
 __SLASH__attn__SLASH__wq``, ``opt__SLASH__count``, ``step``).  Leaves go
 through numpy, so a bfloat16 tensor is refused (numpy has no such type).
-Restoring onto a different mesh (``shardings``) is the multi-card
-port's work.
+
+Elastic restore: ``restore(step, like, shardings)`` loads each leaf from
+the same files and places it on the *current* mesh by the given
+``parallel/sharding.py::Sharding`` (this rank's slice), so a checkpoint
+saved on one mesh reshards onto another.  A sharded state is saved whole:
+the caller gathers it (``Sharding.unshard``) first.
 """
 from __future__ import annotations
 
@@ -127,20 +131,27 @@ class Checkpointer:
                 device="cuda") -> Any:
         """The tree saved at ``step``, in ``like``'s structure (its leaf
         values are ignored), every leaf a tensor on ``device`` with its
-        saved dtype.  A leaf of ``like`` missing from the checkpoint
-        raises ``KeyError``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore with shardings places leaves on a new mesh "
-                "(ROADMAP.md Queue 1 item 12, multi-card)")
+        saved dtype.  ``shardings`` (``like``'s structure, a ``Sharding``
+        per leaf, or one for every leaf) places each leaf on the current
+        mesh: this rank's slice of it.  A leaf of ``like`` missing from
+        the checkpoint raises ``KeyError``."""
         dev = resolve_device(device)
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
+        place = {}
+        if shardings is not None:
+            if hasattr(shardings, "place"):
+                place = {leaf_name(p): shardings
+                         for p, _ in leaves_with_paths(like)}
+            else:
+                place = {leaf_name(p): s
+                         for p, s in leaves_with_paths(shardings)}
 
         def load(path, _):
             name = leaf_name(path)
             if name not in manifest["leaves"]:
                 raise KeyError(f"checkpoint {step} missing leaf {name}")
-            return torch.from_numpy(np.load(d / f"{name}.npy")).to(dev)
+            t = torch.from_numpy(np.load(d / f"{name}.npy")).to(dev)
+            return place[name].place(t) if name in place else t
 
         return map_with_paths(load, like)

@@ -14,8 +14,13 @@
 Peer hits refresh the owning shard's LRU/LFU state (``SemanticCache.touch``)
 and are optionally re-admitted into the serving node's shard (the
 ``admission`` policy).  A 1-node cluster is the paper's single edge cache.
-The reference's real ``cache``-axis mesh (a ``shard_map`` collective) is
-ROADMAP.md Queue 1 item 12 and raises here.
+
+With a ``mesh`` whose ``cache`` axis has ``num_nodes`` ranks, the peer
+rung runs as a collective (``parallel/sharding.py::sharded_topk_lookup``):
+every rank keeps the whole (N, C, D) stack and runs the same cluster on
+the same requests, as the reference's single controller does, and only
+the peer probe is split, rank r scanning shard r.  Results are the same on
+every rank and the same as without the mesh.
 
 Shard state lives on the cluster's device; the admission bookkeeping reads
 it on the host, as the reference does with numpy (a device-to-host copy
@@ -36,7 +41,7 @@ from repro_torch.core.tiers import (TIER_LOCAL, TIER_MISS, TIER_NAMES,
                                     TierLadder, TierProbeResult,
                                     build_probe_context, pow2, route_flat)
 from repro_torch.device import resolve_device
-from repro_torch.parallel.sharding import MESH_TODO
+from repro_torch.launch.mesh import mesh_shape
 
 __all__ = ["TIER_LOCAL", "TIER_PEER", "TIER_MISS", "TIER_NAMES",
            "ClusterConfig", "ClusterLookupResult", "CooperativeEdgeCluster",
@@ -120,15 +125,24 @@ class ClusterLookupResult(NamedTuple):
 class CooperativeEdgeCluster:
     """N cooperating edge nodes, one ``SemanticCache`` shard each.  Itself
     a ``CacheTier``, so an engine composes it directly with a cloud tier in
-    one ladder.  ``mesh`` (a real cache-axis mesh) raises."""
+    one ladder.
+
+    ``mesh`` (optional): a ``DeviceMesh`` with a ``cache_axis`` dimension of
+    ``num_nodes`` ranks; with it the peer rung is the collective lookup
+    (one all-gather of (idx, score) per shard), without it one pooled
+    launch over the stacked shards: the same results."""
 
     name, code = "edge", TIER_LOCAL      # CacheTier identity (org-level)
 
-    def __init__(self, cfg: ClusterConfig, mesh=None, metrics=None,
-                 tracer=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+    def __init__(self, cfg: ClusterConfig, mesh=None,
+                 cache_axis: str = "cache", metrics=None, tracer=None,
+                 device="cuda"):
         self.cfg = cfg
+        self.mesh = mesh
+        self.cache_axis = cache_axis
+        if mesh is not None:
+            assert mesh_shape(mesh)[cache_axis] == cfg.num_nodes, (
+                mesh_shape(mesh), cfg.num_nodes)
         self.device = resolve_device(device)
         self.cache = SemanticCache(
             capacity=cfg.node_capacity, key_dim=cfg.key_dim,

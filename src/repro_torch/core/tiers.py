@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels.similarity import similarity_topk_batched
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.parallel.sharding import sharded_topk_lookup
 
 TIER_LOCAL, TIER_PEER, TIER_REMOTE, TIER_MISS = 0, 1, 2, 3
 TIER_NAMES = ("local", "peer", "remote", "miss")
@@ -164,8 +165,10 @@ class PeerRung:
     earlier group's admission must not change a later group's payload),
     touches the owning shard, applies the admission policy, and rebates the
     home shard's miss counter for served rows so hits + misses ==
-    requests.  (A cluster on a real cache-axis mesh — the reference's
-    collective branch — cannot be built yet: ROADMAP.md Queue 1 item 12.)"""
+    requests.  One cluster (K == 1) on a cache-axis mesh probes as the
+    collective ``sharded_topk_lookup``: each rank scans its own shard (K4)
+    and the (idx, score) candidates are all-gathered, the same merged
+    result as the pooled launch."""
 
     name, code = "peer", TIER_PEER
 
@@ -178,9 +181,17 @@ class PeerRung:
             return None
         dev = ctx.keys.device
         q_dev = torch.as_tensor(queries, device=dev)
-        g_idx, g_score = similarity_topk_batched(
-            q_dev.reshape(K, N * B, D), ctx.keys.reshape(K, N * C, D),
-            ctx.valid.reshape(K, N * C), 1, impl=cfg.lookup_impl)
+        if K == 1 and getattr(clusters[0], "mesh", None) is not None:
+            # a real cache-axis mesh: one collective (an all-gather of
+            # (idx, score) per shard), the same merged result
+            g_idx, g_score = sharded_topk_lookup(
+                q_dev.reshape(N * B, D), ctx.keys[0], ctx.valid[0], 1,
+                clusters[0].mesh, clusters[0].cache_axis,
+                impl=cfg.lookup_impl)
+        else:
+            g_idx, g_score = similarity_topk_batched(
+                q_dev.reshape(K, N * B, D), ctx.keys.reshape(K, N * C, D),
+                ctx.valid.reshape(K, N * C), 1, impl=cfg.lookup_impl)
         g_idx = _np(g_idx)[..., 0].reshape(K, N, B)
         g_score = _np(g_score)[..., 0].reshape(K, N, B)
 

@@ -20,16 +20,17 @@
 //   * Score pass, grid (C tiles of kTile rows, D splits, query chunks x key
 //     matrices).  A block of kWarps warps scores kTile key rows against a
 //     chunk of kQChunk queries over one split of D, walked in slices of
-//     kSlice values (one slice a split at C = 512, D = 2048; two at C =
-//     2048).  The chunk's query slice is
+//     kSlice values (one slice a split at D = 2048, whatever C).  The
+//     chunk's query slice is
 //     staged in shared memory; each lane loads its share of the warp's
 //     kRowsPerWarp key rows with 16-byte loads (4-byte loads when D % 4 !=
 //     0), all of them issued before the first product, and keeps
 //     kRowsPerWarp x kQChunk partial sums in registers.  Splitting D as well
-//     as C (into up to kMaxSplit splits, enough for about two blocks per SM:
-//     128 blocks at C = 512, 256 at C = 2048) fills the card while each
-//     block reads only its split of the queries: each key row is read once
-//     per probe, and the queries once per C tile.
+//     as C (into kMaxSplit splits whatever C: 128 blocks at C = 512, 512 at
+//     C = 2048) fills the card while each block reads only its split of
+//     the queries: each key row is read once per probe, and the queries
+//     once per C tile.  The split count depends on D alone, so a key's
+//     score does not depend on the rows launched beside it.
 //   * The warp reduces its sums once per row, 16 queries across 32 lanes by
 //     a butterfly that halves the values at each step (16 shuffles, not
 //     80), and the block writes its partial dot products, coalesced, to a
@@ -73,7 +74,6 @@ constexpr int kTile = kWarps * kRowsPerWarp;    // key rows of a block
 constexpr int kQChunk = 16;                     // queries of a block
 constexpr int kSlice = 256;                     // D values staged at once
 constexpr int kMaxSplit = 8;                    // most D splits of a probe
-constexpr int kTargetBlocks = 2 * 132;          // two per SM of an H100
 constexpr int kMergeThreads = 512;
 constexpr float kNegInf = -1e30f;               // score of an invalid slot
 
@@ -299,14 +299,16 @@ merge_kernel(float* ws, const uint8_t* __restrict__ valid, int NQ, int Q,
   }
 }
 
-// D splits of a probe over C keys: enough for about kTargetBlocks score
-// blocks, at most kMaxSplit; each split spans whole slices.  Returns the
-// split count and sets *span to its width.
+// D splits of a probe: kMaxSplit (fewer when D has fewer slices), each
+// spanning whole slices.  The split depends on D alone, never on C, so a
+// (query, row) pair is summed in one order in every launch: a key scores
+// the same in a launch over its own shard as over the pooled shards, and
+// the cache-axis collective's merge of per-shard top-k equals one pooled
+// launch bit for bit.  Returns the split count and sets *span to its width.
 int splits_of(int C, int D, int* span) {
+  (void)C;
   const int slices = (D + kSlice - 1) / kSlice;
-  const int tiles = (C + kTile - 1) / kTile;
-  const int want = std::min(
-      {(kTargetBlocks + tiles - 1) / tiles, kMaxSplit, slices});
+  const int want = std::min(kMaxSplit, slices);
   const int per = (slices + want - 1) / want;   // slices of a split
   *span = per * kSlice;
   return (slices + per - 1) / per;

@@ -6,6 +6,8 @@ checkpoint/restart checks rely on.  Each host materialises only its
 ``host_rows`` slice of the global batch.  Batches are numpy (the package
 boundary), bit-identical to the reference's for every (seed, step,
 host_id): the same ``SeedSequence`` and the same draws in the same order.
+``shard_batch`` places a host batch over a mesh: each rank keeps its own
+rows.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -67,7 +70,17 @@ class SyntheticLMData:
             step += 1
 
 
-def shard_batch(batch: dict, mesh, rules) -> dict:
-    """Places a host batch across a mesh: the multi-card port's work."""
-    raise NotImplementedError("shard_batch needs a device mesh (ROADMAP.md "
-                              "Queue 1 item 12, multi-card)")
+def shard_batch(batch: dict, mesh, rules, device="cuda") -> dict:
+    """This rank's part of a host batch (every rank holds the whole one):
+    each leaf's batch dim placed over (pod, data) as the rule set says
+    (replicated where it does not divide), other dims replicated; tensors
+    on ``device``, each rank's slice and no communication."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v), device=dev)
+        axes = ("batch",) + (None,) * (t.dim() - 1)
+        out[k] = rules.sharding_for(axes, tuple(t.shape), mesh).place(t)
+    return out

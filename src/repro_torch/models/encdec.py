@@ -99,6 +99,20 @@ _INIT = {"w": "ones", "b": "zeros", "bq": "zeros", "bv": "zeros",
          "bo": "zeros", "b_in": "zeros", "b_out": "zeros"}
 
 
+# logical axes: the top-level leaves by name, a layer's by its parameter
+# name (a layer norm's w / b and a projection's bias on "embed")
+ENC_DEC_TOP_AXES = {"embed/tokens": ("vocab", "embed"),
+                    "embed/dec_pos": ("cache_seq", "embed")}
+ENC_DEC_AXES = {"w": ("embed",), "b": ("embed",), "bo": ("embed",),
+                "wq": ("embed", "heads", "qk_dim"),
+                "wk": ("embed", "heads", "qk_dim"),
+                "wv": ("embed", "heads", "qk_dim"),
+                "bq": ("heads", "qk_dim"), "bv": ("heads", "qk_dim"),
+                "wo": ("heads", "qk_dim", "embed"),
+                "w_in": ("embed", "mlp"), "b_in": ("mlp",),
+                "w_out": ("mlp", "embed"), "b_out": ("embed",)}
+
+
 class _Layer(nn.Module):
     """One encoder layer (attn_ln, attn, mlp_ln, mlp) or decoder layer
     (self_ln, self, cross_ln, cross, mlp_ln, mlp), submodules named by
@@ -162,6 +176,22 @@ class EncDecLM(nn.Module):
                     for p, _ in mod.named_parameters(recurse=False):
                         yield (f"{side}/l/{ref}/{p}", r, mod, p,
                                _INIT.get(p, "normal"))
+
+    def logical_axes(self) -> Dict[str, tuple]:
+        """{reference name: logical axes}, layer leaves stacked, as the
+        reference's ``logical_axes``."""
+        return L.leaf_layout(self, self._axes_of)[0]
+
+    def init_shapes(self) -> Dict[str, L.ShapeDtype]:
+        """{reference name: ``ShapeDtype``}, as the reference's
+        ``init_shapes``."""
+        return L.leaf_layout(self, self._axes_of)[1]
+
+    @staticmethod
+    def _axes_of(name: str) -> tuple:
+        if name in ENC_DEC_TOP_AXES:
+            return ENC_DEC_TOP_AXES[name]
+        return ENC_DEC_AXES[name.rsplit("/", 1)[1]]
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "EncDecLM":

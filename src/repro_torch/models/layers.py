@@ -19,12 +19,18 @@ reference, which computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.parallel.collectives import (copy_to, gather_along,
+                                              gather_rows, mean_over,
+                                              rank_index, reduce_from,
+                                              scatter_to)
+from repro_torch.parallel.sharding import constrain, current_sharder
 
 
 def init_leaf(shape: tuple, init: str, dtype: torch.dtype,
@@ -42,6 +48,30 @@ def init_leaf(shape: tuple, init: str, dtype: torch.dtype,
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (x * scale).to(dtype)
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def leaf_layout(model, axes_of) -> tuple:
+    """({name: logical axes}, {name: ``ShapeDtype``}) of every weight of
+    ``model`` in the reference's flat layout: a repeating segment's leaf
+    stacked, ``("layers",) + axes``.  ``axes_of(name)`` gives a leaf's own
+    axes."""
+    axes, shapes, reps = {}, {}, {}
+    for name, r, owner, attr, _ in model.leaves():
+        p = getattr(owner, attr)
+        reps[name] = reps.get(name, 0) + 1
+        axes[name] = axes_of(name)
+        shapes[name] = (tuple(p.shape), p.dtype, r is not None)
+    for name, (shape, dtype, stacked) in shapes.items():
+        if stacked:
+            shape, axes[name] = (reps[name],) + shape, ("layers",) + axes[name]
+        shapes[name] = ShapeDtype(shape, dtype)
+    return axes, shapes
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -266,28 +296,35 @@ def mla_attention(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
     return torch.einsum("bshe,hed->bsd", attn, blk.wo)
 
 
+def _same(t):
+    return t
+
+
 def mlp_apply(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor) -> torch.Tensor:
-    """Gated-SiLU MLP (llama family; also MoE shared experts)."""
+              w_down: torch.Tensor, reduce=_same) -> torch.Tensor:
+    """Gated-SiLU MLP (llama family; also MoE shared experts).
+    ``reduce`` takes the down projection's output (the sharded step sums
+    its partial outputs there)."""
     g = x @ w_gate
     u = x @ w_up
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ w_down
+    return reduce(h @ w_down)
 
 
-def gelu_mlp_apply(blk, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp_apply(blk, x: torch.Tensor, reduce=_same) -> torch.Tensor:
     """Two-matrix GELU MLP with biases (gpt-bigcode / granite-20b).  JAX's
-    ``gelu`` is the tanh approximation, in fp32."""
+    ``gelu`` is the tanh approximation, in fp32.  ``reduce`` as in
+    ``mlp_apply``, before the output bias."""
     h = x @ blk.w_in + blk.b_in
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ blk.w_out + blk.b_out
+    return reduce(h @ blk.w_out) + blk.b_out
 
 
-def dense_mlp_apply(cfg, blk, x: torch.Tensor) -> torch.Tensor:
+def dense_mlp_apply(cfg, blk, x: torch.Tensor, reduce=_same) -> torch.Tensor:
     """The config's dense MLP: two-matrix GELU or gated SiLU."""
     if cfg.mlp_kind == "gelu":
-        return gelu_mlp_apply(blk, x)
-    return mlp_apply(x, blk.w_gate, blk.w_up, blk.w_down)
+        return gelu_mlp_apply(blk, x, reduce)
+    return mlp_apply(x, blk.w_gate, blk.w_up, blk.w_down, reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +417,17 @@ def moe_apply_dropless(cfg, w, x: torch.Tensor,
     # kept assignments own distinct slots, so a plain write fills them; the
     # dropped ones land in a spare slot C that no expert reads
     buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
+    # reference: layers.py:445 (the buffer's constraint before the scatter)
+    buf = constrain(buf, ("experts", "moe_capacity", None))
     buf[flat_ids, torch.where(keep, pos, C)] = xf.repeat_interleave(k, 0)
-    buf = buf[:, :C]
+    # reference: layers.py:447 (and after it)
+    buf = constrain(buf[:, :C], ("experts", "moe_capacity", None))
     g = torch.bmm(buf, w.we_gate)
     u = torch.bmm(buf, w.we_up)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     y = torch.bmm(h, w.we_down)                                   # (E, C, D)
+    # reference: layers.py:453
+    y = constrain(y, ("experts", "moe_capacity", None))
     gathered = y[flat_ids, safe_pos]                              # (N*k, D)
     wts = weights.reshape(N * k) * keep
     out = (gathered.float() * wts[:, None]).reshape(N, k, D).sum(1)
@@ -393,20 +435,128 @@ def moe_apply_dropless(cfg, w, x: torch.Tensor,
     return _shared_experts(cfg, w, x, out), aux
 
 
+def moe_apply_dropless_ep(cfg, w, x: torch.Tensor,
+                          capacity_factor: float = 1.25):
+    """Expert-parallel dropless MoE — the reference's shard_map dispatch
+    on the installed sharder's mesh.
+
+    Each data rank routes its own rows into its own capacity buffers (a
+    local rank within each expert, so no buffer is shared across data
+    ranks); ``me`` / ``fe`` are averaged over the data ranks before the
+    aux product (the aux is nonlinear in them).  Over 'model', a rank runs
+    its E / model experts (``ep``, when the experts divide) or its slice
+    of every expert's FFN (``fp``, when d_ff_expert divides), and the
+    outputs are summed over 'model'.  With no sharder, no split axis, or
+    a batch that does not divide over the data ranks, it is
+    ``moe_apply_dropless``, as in the reference.
+
+    ``w`` holds the whole weights (every rank the same); x is this rank's
+    rows when the sharder says the rows are split (the sharded train
+    step), else the whole batch, and the result is alike.  Returns
+    (out, aux)."""
+    sh = current_sharder()
+    if sh is None:
+        return moe_apply_dropless(cfg, w, x, capacity_factor)
+    mesh = sh.mesh
+    sizes = mesh_shape(mesh)
+    m = cfg.moe
+    E, k, F = m.num_experts, m.top_k, m.d_ff_expert
+    dp = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+    n_dp = int(np.prod([sizes[a] for a in dp])) if dp else 1
+    n_mp = sizes.get("model", 1)
+    whole = not sh.rows
+    if (not dp and n_mp <= 1) or (dp and whole and x.shape[0] % n_dp):
+        return moe_apply_dropless(cfg, w, x, capacity_factor)
+    ep = n_mp > 1 and E % n_mp == 0            # expert-sharded
+    fp = n_mp > 1 and not ep and F % n_mp == 0  # expert-FFN sharded
+    mp = ("model",) if (ep or fp) else ()
+    E_loc = E // n_mp if ep else E
+    # this rank's rows (the whole batch in: its slice, gathered back out,
+    # and the weights' gradients summed over the data ranks, as the
+    # reference's shard_map sums a replicated input's)
+    xl = scatter_to(x, mesh, dp, 0) if whole else x
+    router, we_gate, we_up, we_down = (
+        copy_to(t, mesh, dp) if whole else t
+        for t in (w.router, w.we_gate, w.we_up, w.we_down))
+    B_loc, S, D = xl.shape
+    N = B_loc * S
+    xf = xl.reshape(N, D)
+    probs = torch.softmax((xf @ router).float(), dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :k], ids[:, :k]
+    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    # load-balance aux: me / fe are the means over every data rank's rows
+    me = mean_over(probs.mean(dim=0), mesh, dp)
+    fe = mean_over(torch.nn.functional.one_hot(ids, E).float().sum(1)
+                   .mean(dim=0) / k, mesh, dp)
+    aux = E * torch.sum(me * fe)
+
+    # the experts' part: each rank's expert (or FFN) slice of the whole
+    # weights (``scatter_to``: every rank gets the whole gradient back);
+    # the rows and combine weights it sees pass through ``copy_to``, their
+    # gradients summed over 'model'
+    if ep:
+        wg, wu, wd = (scatter_to(t, mesh, mp, 0)
+                      for t in (we_gate, we_up, we_down))
+    elif fp:
+        wg, wu = (scatter_to(t, mesh, mp, 2) for t in (we_gate, we_up))
+        wd = scatter_to(we_down, mesh, mp, 1)
+    else:
+        wg, wu, wd = we_gate, we_up, we_down
+    xe = copy_to(xf, mesh, mp)
+    wts_all = copy_to(weights, mesh, mp)
+    C = moe_capacity(N, cfg, capacity_factor)
+    flat_ids = ids.reshape(N * k)
+    e0 = mesh.get_local_rank("model") * E_loc if ep else 0
+    mine = (flat_ids >= e0) & (flat_ids < e0 + E_loc)
+    loc_ids = torch.where(mine, flat_ids - e0, E_loc)       # E_loc: spare
+    # token-major rank within each local expert (a stable sort, as in
+    # ``moe_apply_dropless``); assignments to other ranks' experts sort
+    # into the spare expert E_loc
+    order = torch.argsort(loc_ids, stable=True)
+    counts = torch.bincount(loc_ids, minlength=E_loc + 1)
+    starts = counts.cumsum(0) - counts
+    pos = torch.empty_like(loc_ids)
+    pos[order] = (torch.arange(N * k, device=x.device)
+                  - starts[loc_ids[order]])
+    keep = mine & (pos < C)
+    buf = torch.zeros((E_loc + 1, C + 1, D), dtype=x.dtype, device=x.device)
+    buf[torch.where(keep, loc_ids, E_loc), torch.where(keep, pos, C)] = \
+        xe.repeat_interleave(k, 0)
+    buf = buf[:E_loc, :C]
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    hmid = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    y = torch.bmm(hmid, wd)                                   # (E_loc, C, D)
+    gathered = y[loc_ids.clamp(max=E_loc - 1), torch.where(keep, pos, 0)]
+    wts = wts_all.reshape(N * k) * keep
+    out = (gathered.float() * wts[:, None]).reshape(N, k, D).sum(1)
+    out = reduce_from(out.to(x.dtype), mesh, mp)   # combine expert shards
+    out = out.reshape(B_loc, S, D)
+    if whole:
+        out = gather_along(out, mesh, dp, 0)
+    return _shared_experts(cfg, w, x, out), aux
+
+
 def check_moe_impl(impl: str) -> None:
-    """``dense`` | ``dropless``; the expert-parallel ``ep`` is not ported
-    yet, and any other name is refused."""
-    if impl == "ep":
-        raise NotImplementedError(
-            "moe impl 'ep' (expert-parallel shard_map dispatch) needs the "
-            "multi-card port (ROADMAP.md Queue 1 item 12)")
-    if impl not in ("dense", "dropless"):
-        raise ValueError(f"moe impl {impl!r} not in dense | dropless")
+    """``dense`` | ``dropless`` | ``ep``; any other name is refused."""
+    if impl not in ("dense", "dropless", "ep"):
+        raise ValueError(f"moe impl {impl!r} not in dense | dropless | ep")
 
 
 def moe_apply(cfg, w, x: torch.Tensor, impl: str = "dense"):
-    """``dense`` | ``dropless`` (``check_moe_impl``)."""
+    """``dense`` | ``dropless`` | ``ep`` (``check_moe_impl``).  Under the
+    sharded train step (a sharder whose ``rows`` are split) ``dense`` and
+    ``dropless`` see the whole batch, as the reference's global dispatch
+    does: the rows are gathered, and this rank keeps its own."""
     check_moe_impl(impl)
-    if impl == "dropless":
-        return moe_apply_dropless(cfg, w, x)
-    return moe_apply_dense(cfg, w, x)
+    if impl == "ep":
+        return moe_apply_dropless_ep(cfg, w, x)
+    fn = moe_apply_dropless if impl == "dropless" else moe_apply_dense
+    sh = current_sharder()
+    if sh is None or not sh.rows:
+        return fn(cfg, w, x)
+    idx, _ = rank_index(sh.mesh, sh.rows)
+    B = x.shape[0]
+    y, aux = fn(cfg, w, gather_rows(x, sh.mesh, sh.rows))
+    return y[idx * B:(idx + 1) * B], aux

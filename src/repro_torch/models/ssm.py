@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel.sharding import constrain
 
 # reference leaf suffix (under "ssm/") -> (DecoderBlock attr, init)
 SSM_LEAVES = {
@@ -34,6 +35,19 @@ SSM_LEAVES = {
     "dt_bias": ("dt_bias", "zeros"),
     "norm_w": ("ssm_norm_w", "ones"),
     "w_out": ("ssm_w_out", "normal"),
+}
+
+
+# each leaf's logical axes, by the same suffix
+SSM_AXES = {
+    "w_in": ("embed", "ssm_inner"),
+    "conv_w": ("conv_w", "ssm_inner"),
+    "conv_b": ("ssm_inner",),
+    "a_log": ("ssm_heads",),
+    "d_skip": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",),
+    "norm_w": ("ssm_inner",),
+    "w_out": ("ssm_inner", "embed"),
 }
 
 
@@ -185,7 +199,9 @@ def ssm_apply(cfg, p, x: torch.Tensor,
     P, N, G = s.head_dim, s.d_state, s.ngroups
     z, xc, b, c, dt, new_conv = _conv_and_split(cfg, p, x, conv_state)
     Bsz, L, _ = x.shape
-    xh = xc.reshape(Bsz, L, H, P)
+    # reference: ssm.py:160
+    xh = constrain(xc.reshape(Bsz, L, H, P),
+                   ("batch", None, "ssm_heads", None))
     bh = b.reshape(Bsz, L, G, N)
     ch = c.reshape(Bsz, L, G, N)
     dt = _softplus(dt.float() + p.dt_bias.float())

@@ -33,6 +33,13 @@ keeps the matmul outputs): memory, not numbers.  It reads the module's
 weights, so ``train/trainer.py`` binds the cast master weights with
 ``torch.func.functional_call`` and differentiates inside that call.
 
+Under the sharded train step (``train/trainer.py``) the weights bound to
+the model may be this rank's 'model' slices (``tp_leaves``): GQA
+attention then runs on the rank's heads (K8 per rank), a dense MLP on its
+columns, the embedding and the logits on its vocabulary rows, and the
+partial results are summed over 'model' (``parallel/collectives.py``).
+``constrain`` marks the reference's activation-sharding sites.
+
 ``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the GQA
 attention of full sequences (``forward``, ``forward_hidden``,
 ``prefill``: the flash-attention kernel K8) and of slotted decode steps
@@ -67,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import types
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -82,6 +90,9 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_gather_view)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.parallel.collectives import (copy_to, gather_along,
+                                              reduce_from)
+from repro_torch.parallel.sharding import constrain, model_sharder
 
 INVALID_PAGE = 2 ** 30
 
@@ -187,6 +198,44 @@ TOP_LEAVES = {
     "final_norm/w": ("final_norm", "ones"),
     "head/w": ("head", "normal"),
 }
+# each weight's logical axes (the reference's ``ParamSpec.axes``), by the
+# same names: the keys of the sharding rules (``parallel/sharding.py``)
+BLOCK_AXES = {
+    "attn_norm": ("embed",),
+    "attn/wq": ("embed", "heads", "qk_dim"),
+    "attn/wk": ("embed", "kv_heads", "qk_dim"),
+    "attn/wv": ("embed", "kv_heads", "qk_dim"),
+    "attn/wo": ("heads", "qk_dim", "embed"),
+    "attn/bq": ("heads", "qk_dim"),
+    "attn/bk": ("kv_heads", "qk_dim"),
+    "attn/bv": ("kv_heads", "qk_dim"),
+    "attn/w_dkv": ("embed", "kv_lora"),
+    "attn/w_krope": ("embed", "qk_dim"),
+    "attn/kv_norm": ("kv_lora",),
+    "attn/w_uk": ("kv_lora", "heads", "qk_dim"),
+    "attn/w_uv": ("kv_lora", "heads", "qk_dim"),
+    "ssm_norm": ("embed",),
+    **{f"ssm/{k}": v for k, v in S.SSM_AXES.items()},
+    "mlp_norm": ("embed",),
+    "mlp/w_gate": ("embed", "mlp"),
+    "mlp/w_up": ("embed", "mlp"),
+    "mlp/w_down": ("mlp", "embed"),
+    "mlp/w_in": ("embed", "mlp"),
+    "mlp/b_in": ("mlp",),
+    "mlp/w_out": ("mlp", "embed"),
+    "mlp/b_out": ("embed",),
+    "moe/router": ("embed", "experts"),
+    "moe/we_gate": ("experts", "embed", "mlp"),
+    "moe/we_up": ("experts", "embed", "mlp"),
+    "moe/we_down": ("experts", "mlp", "embed"),
+    "moe/shared/w_gate": ("embed", "mlp"),
+    "moe/shared/w_up": ("embed", "mlp"),
+    "moe/shared/w_down": ("mlp", "embed"),
+}
+TOP_AXES = {"embed/tokens": ("vocab", "embed"), "final_norm/w": ("embed",),
+            "head/w": ("embed", "vocab")}
+
+
 # each attention kind's cache leaves, by suffix under "{segment}/{position}/"
 CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"),
                 "ssm": ("conv", "state")}
@@ -221,6 +270,35 @@ def _check_decoder_only(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name} is an encoder-decoder config: "
                          "build_model gives it an EncDecLM "
                          "(models/encdec.py)")
+
+
+def _tp_weights(cfg: ModelConfig, tp, blk):
+    """The attention weights of a rank whose query heads are split over
+    'model'.  When the kv heads are too few to split, every rank projects
+    them whole and attends with some of them: their weights pass through
+    ``copy_to``, so each rank's gradient is the sum over 'model'."""
+    if blk.wk.shape[1] < cfg.num_kv_heads:
+        return blk
+    names = ["wq", "wk", "wv"] + (["bq", "bk", "bv"] if cfg.qkv_bias else [])
+    return types.SimpleNamespace(**{
+        n: (getattr(blk, n) if n in ("wq", "bq")
+            else copy_to(getattr(blk, n), tp.mesh, ("model",)))
+        for n in names})
+
+
+def _local_kv(cfg: ModelConfig, tp, q, k, v):
+    """The kv heads of this rank's query heads when the query heads are
+    split over 'model' and the kv heads are not (too few to split: the
+    projection ran whole): heads [lo, lo + H_local) read kv heads
+    [lo // G, ...) of the G-to-1 grouping."""
+    H_l, K = q.shape[2], k.shape[2]
+    if K < cfg.num_kv_heads:                     # split alike: aligned
+        return k, v
+    G = cfg.num_heads // cfg.num_kv_heads
+    assert H_l % G == 0 or G % H_l == 0, (H_l, G)
+    lo = tp.mesh.get_local_rank("model") * H_l // G
+    n = max(1, H_l // G)
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
 
 
 class DecoderBlock(nn.Module):
@@ -331,6 +409,34 @@ class DecoderLM(nn.Module):
                     yield (f"{base}/{suffix}", r if reps > 1 else None, blk,
                            attr, init)
 
+    def logical_axes(self) -> Dict[str, tuple]:
+        """{reference name: logical axes} of every weight, repeats stacked
+        (``("layers",) + axes``), as the reference's ``logical_axes``."""
+        return L.leaf_layout(self, self._axes_of)[0]
+
+    def init_shapes(self) -> Dict[str, L.ShapeDtype]:
+        """{reference name: ``ShapeDtype``} of every weight in the
+        reference's flat layout, as its ``init_shapes``."""
+        return L.leaf_layout(self, self._axes_of)[1]
+
+    @staticmethod
+    def _axes_of(name: str) -> tuple:
+        return TOP_AXES.get(name) or BLOCK_AXES[name.split("/", 2)[2]]
+
+    def tp_leaves(self) -> set:
+        """The weights whose 'model'-axis slices the forward computes with
+        under the sharded train step (GQA attention, the dense MLPs, the
+        vocabulary); every other weight is gathered whole there."""
+        out = {"embed/tokens", "head/w"}
+        for name, _, owner, _, _ in self.leaves():
+            if name in TOP_LEAVES:
+                continue
+            suffix = name.split("/", 2)[2]
+            if (suffix.startswith("mlp/")
+                    or (owner.kind == "attn" and suffix.startswith("attn/"))):
+                out.add(name)
+        return out
+
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "DecoderLM":
         """Random weights at the reference initializer's distribution, drawn
@@ -348,16 +454,41 @@ class DecoderLM(nn.Module):
               image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings, after the patch embeddings (cast to the
         weights' dtype) when ``image_embeds`` (B, P, D) is given."""
-        x = self.embed_tokens[tokens.long()]
+        table = self.embed_tokens
+        tp = model_sharder() if table.shape[0] < self.cfg.vocab_size \
+            else None
+        if tp is None:
+            x = table[tokens.long()]
+        else:
+            # the sharded train step: this rank holds vocab rows [lo, lo +
+            # V_local); a token outside them reads zeros, and the sum over
+            # 'model' has each token's row exactly once
+            ids = tokens.long() - tp.mesh.get_local_rank("model") \
+                * table.shape[0]
+            inside = (ids >= 0) & (ids < table.shape[0])
+            x = table[ids.clamp(0, table.shape[0] - 1)] \
+                * inside[..., None].to(table.dtype)
+            x = reduce_from(x, tp.mesh, ("model",))
         if image_embeds is not None:
             x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
         return x
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        w = self.embed_tokens if self.cfg.tie_embeddings else self.head
+        split = w.shape[0 if self.cfg.tie_embeddings else 1] \
+            < self.cfg.vocab_size
+        tp = model_sharder() if split else None
+        if tp is not None:
+            x = copy_to(x, tp.mesh, ("model",))
         if self.cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", x, self.embed_tokens)
-        return x @ self.head
+            logits = torch.einsum("bsd,vd->bsv", x, w)
+        else:
+            logits = x @ w
+        if tp is not None:
+            # this rank's vocab columns, gathered whole for the CE
+            logits = gather_along(logits, tp.mesh, ("model",), -1)
+        return logits
 
     def _mlp(self, blk, x):
         """The layer's MLP half: norm, dense MLP or experts, residual (none
@@ -369,7 +500,16 @@ class DecoderLM(nn.Module):
         if blk.mlp == "moe":
             y, aux = L.moe_apply(self.cfg, blk, h, impl=self.moe_impl)
             return x + y, aux
-        return x + L.dense_mlp_apply(self.cfg, blk, h), None
+        F = (blk.w_in if self.cfg.mlp_kind == "gelu" else blk.w_gate).shape[1]
+        tp = model_sharder() if F < self.cfg.d_ff else None
+        if tp is None:
+            return x + L.dense_mlp_apply(self.cfg, blk, h), None
+        # the sharded train step: this rank's columns of the MLP, the
+        # partial outputs summed over 'model' (before the output bias)
+        y = L.dense_mlp_apply(
+            self.cfg, blk, copy_to(h, tp.mesh, ("model",)),
+            reduce=lambda t: reduce_from(t, tp.mesh, ("model",)))
+        return x + y, None
 
     def _layer_fwd(self, blk, x, positions):
         """One layer over a full sequence: (x, the values its cache keeps:
@@ -386,10 +526,21 @@ class DecoderLM(nn.Module):
                                     k_positions=positions)
         else:
             h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
-            q, k, v = L.attention_qkv(cfg, blk, h, positions)
+            tp = model_sharder() if blk.wq.shape[1] < cfg.num_heads else None
+            w = blk
+            if tp is not None:
+                h = copy_to(h, tp.mesh, ("model",))
+                w = _tp_weights(cfg, tp, blk)
+            q, k, v = L.attention_qkv(cfg, w, h, positions)
+            if tp is not None:
+                k, v = _local_kv(cfg, tp, q, k, v)
+            # the sharded train step: K8 on this rank's heads only
             attn = L.causal_attention(q, k, v, window=cfg.sliding_window,
                                       impl=self.attention_impl)
-            x = x + L.attention_out(blk, attn)
+            out = L.attention_out(blk, attn)
+            if tp is not None:
+                out = reduce_from(out, tp.mesh, ("model",))
+            x = x + out
             new = (k, v)
         x, aux = self._mlp(blk, x)
         return x, new, aux
@@ -414,6 +565,8 @@ class DecoderLM(nn.Module):
     def _layers_fwd(self, lo, hi, positions, x):
         """Layers lo..hi-1 over a full sequence: (x, their summed aux)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # reference: transformer.py:211 (the segment body)
+        x = constrain(x, ("batch", None, "act_embed"))
         for blk in self.layers[lo:hi]:
             x, _, a = self._layer_fwd(blk, x, positions)
             if a is not None:
@@ -589,6 +742,8 @@ class DecoderLM(nn.Module):
         cache = self.init_cache(B, max_len)
         positions = self._positions(B, S)
         for i, blk in enumerate(self.layers):
+            # reference: transformer.py:552 (the prefill body)
+            x = constrain(x, ("batch", None, "act_embed"))
             x, new, _ = self._layer_fwd(blk, x, positions)
             for leaf, val in zip(self._leaves_of(cache, i), new):
                 Sk = leaf.shape[1]
@@ -712,6 +867,9 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         targets = self._write_targets(cache, positions, valid, block_table)
         for i, blk in enumerate(self.layers):
+            # reference: transformer.py:768 (prefill_chunk's body; its paged
+            # decode_step shares this loop)
+            x = constrain(x, ("batch", None, "act_embed"))
             leaves = self._leaves_of(cache, i)
             if blk.kind == "ssm":
                 h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
@@ -824,6 +982,8 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         rows = torch.arange(x.shape[0], device=x.device)
         for i, blk in enumerate(self.layers):
+            # reference: transformer.py:919 (the decode body)
+            x = constrain(x, ("batch", None, "act_embed"))
             leaves = self._leaves_of(cache, i)
             if blk.kind == "ssm":
                 h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)

@@ -12,7 +12,7 @@ a repeating segment's leaves are stacked, so a stacked norm weight
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,14 +48,18 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: OptState,
-               params: Dict[str, torch.Tensor]
+               params: Dict[str, torch.Tensor],
+               gnorm: Optional[torch.Tensor] = None
                ) -> Tuple[Dict[str, torch.Tensor], OptState, dict]:
         """grads/params fp32.  Returns (new_params, new_state, metrics
-        {grad_norm, lr})."""
+        {grad_norm, lr}).  ``gnorm``: the global gradient norm when the
+        leaves are this rank's slices of a sharded state (the sharded step
+        sums it over the mesh); by default the norm of ``grads``."""
         cfg = self.cfg
         names = sorted(params)                 # the reference's leaf order
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
-                               for k in names))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
+                                   for k in names))
         scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
         count = state.count + 1
         lr = self.schedule(count)

@@ -1,1 +1,2 @@
-"""The one-card part of ``repro/parallel``: the cache ladder's pooled probes."""
+"""The port of ``repro/parallel``: sharding rules, the cache ladder's
+probes and the collectives of a mesh."""

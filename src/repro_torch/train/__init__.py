@@ -1,1 +1,1 @@
-# The training loop, the port of repro/train/trainer.py (elastic waits for the multi-card port).
+# Training, the port of repro/train/: the trainer and elastic resizes.

@@ -6,7 +6,9 @@ serving entry point, the attention kernels' modules, the model (its SSM
 block too), the encoder-decoder, the block-reuse cache, the workload
 generators, the training path (optimiser, schedule, trainer,
 checkpointer, synthetic data, tree utilities) and the ported configs
-import in a process where ``jax`` cannot load."""
+and the multi-card modules (meshes, sharding rules and collectives,
+gradient compression, elastic training; the spawned ranks' test cases
+too) import in a process where ``jax`` cannot load."""
 import ast
 import pathlib
 import subprocess
@@ -16,7 +18,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_bench.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_bench.py")) \
+    + [ROOT / "tests" / "torch_multicard_cases.py"]
 BANNED = ("jax", "jaxlib", "repro", "benchmarks")
 
 
@@ -58,7 +61,10 @@ def test_serving_engine_imports_without_jax():
             "repro_torch.optim, repro_torch.optim.adamw, "
             "repro_torch.optim.schedule, repro_torch.train.trainer, "
             "repro_torch.checkpoint.checkpointer, "
-            "repro_torch.data.pipeline, repro_torch.utils.tree; "
+            "repro_torch.data.pipeline, repro_torch.utils.tree, "
+            "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
+            "repro_torch.parallel.collectives, "
+            "repro_torch.optim.grad_compress, repro_torch.train.elastic; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,

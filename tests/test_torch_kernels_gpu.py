@@ -102,6 +102,31 @@ def test_topk_single(gen, Q, C, D, case, k):
 
 
 @pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("case", CASES)
+def test_topk_shards_merged_equal_pooled(gen, case, k):
+    """K4 as the cache-axis collective runs it: one launch per shard (N =
+    4, C = 512, D = 2048, Q = 32: the mesh phase's cache), the shard
+    results stacked as the all-gather gives them and merged
+    (``_merge_shard_topk``), bit-equal to one K4 launch over the pooled
+    keys: a key row's score does not depend on the rows beside it."""
+    from repro_torch.parallel.sharding import _merge_shard_topk
+    N, Q, C, D = 4, 32, 512, 2048
+    keys, valid = _sim(gen, N, 1, C, D, case)[1:]
+    q = _sim(gen, 1, Q, C, D, "random")[0][0]
+    n0 = LAUNCHES["similarity_topk"]
+    parts = [similarity_topk(q, keys[r], valid[r], k) for r in range(N)]
+    assert LAUNCHES["similarity_topk"] == n0 + N
+    mi, ms = _merge_shard_topk(
+        torch.stack([i + r * C for r, (i, _) in enumerate(parts)]),
+        torch.stack([s for _, s in parts]), k)
+    pi, ps = similarity_topk(q, keys.reshape(N * C, D),
+                             valid.reshape(N * C), k)
+    torch.cuda.synchronize()
+    assert torch.equal(mi, pi)
+    assert torch.equal(ms, ps)
+
+
+@pytest.mark.parametrize("k", [1, 4])
 def test_topk_batched_shared_keys(gen, k):
     """Groups probing one shared key matrix under their own masks (the
     digest board) equal the same probe over a per-group copy."""

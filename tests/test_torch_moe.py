@@ -163,20 +163,24 @@ def test_shared_experts_match():
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
 
 
-def test_ep_raises_naming_item_12():
-    _, tcfg = _configs()
-    _, tw = _both(_weights(tcfg))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TL.moe_apply(tcfg, tw, torch.zeros((1, 2, tcfg.d_model)),
-                     impl="ep")
+def test_ep_without_a_sharder_matches_reference():
+    """``moe_apply(impl="ep")`` with no sharder installed against the
+    reference's: both run the dropless dispatch (the reference's
+    ``moe_apply_dropless_ep`` falls back exactly there)."""
+    jcfg, tcfg = _configs(E=4, k=2, shared=1)
+    jp, tw = _both(_weights(jcfg))
+    x = _x((2, 5, jcfg.d_model))
+    jo, ja = JL.moe_apply(jcfg, jp, "moe", jnp.asarray(x), impl="ep")
+    to, ta = TL.moe_apply(tcfg, tw, torch.from_numpy(x), impl="ep")
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(float(ta), float(ja), **TOL)
 
 
 @pytest.mark.parametrize("impl,error", [("sparse", ValueError),
-                                         ("", ValueError),
-                                         ("ep", NotImplementedError)])
+                                         ("", ValueError)])
 def test_unported_moe_impl_refused(impl, error):
-    """``moe_apply`` and the model refuse an impl other than dense or
-    dropless, rather than running ``dense`` in its place."""
+    """``moe_apply`` and the model refuse an impl other than dense,
+    dropless or ep, rather than running ``dense`` in its place."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.transformer import DecoderLM
     _, tcfg = _configs()
@@ -187,6 +191,25 @@ def test_unported_moe_impl_refused(impl, error):
     if impl:                               # "" picks the reference's rule
         with pytest.raises(error):
             DecoderLM(cfg, device="cpu", moe_impl=impl)
+
+
+def test_ep_model_without_a_sharder_equals_dropless():
+    """The reference's rule at model level: a model built with
+    ``moe_impl="ep"`` and run with no sharder computes the dropless
+    model's logits (the case that replaced ``ep`` among the refused
+    impls)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.transformer import DecoderLM
+    cfg = dataclasses.replace(reduced_config(
+        get_config("granite-moe-3b-a800m")), dtype="float32")
+    models = [DecoderLM(cfg, device="cpu", moe_impl=impl).init(
+        torch.Generator().manual_seed(0)) for impl in ("ep", "dropless")]
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 9)))
+    a, b = (m(tokens) for m in models)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -351,17 +351,32 @@ def test_batch_cache_writers_overwrite_recurrent_rows():
 
 
 def test_unported_paths_raise():
+    import torch
+
     from repro_torch.core.cluster import ClusterConfig, CooperativeEdgeCluster
     from repro_torch.parallel.sharding import surviving_topk_lookup
     _, _, _, tm = twin("coic-paper")
     with pytest.raises(NotImplementedError):         # the Pallas interpreter
         TServe(tm, TServing(kv_page=16, attn_impl="paged_interpret"),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):   # a mesh
-        CooperativeEdgeCluster(ClusterConfig(num_nodes=2), mesh=object(),
+    # a mesh whose cache axis does not match the node count is refused, as
+    # in the reference; the collective itself runs in
+    # test_torch_multicard.py (gloo ranks)
+    cache4 = type("FakeMesh", (), {"shape": {"cache": 4}})()
+    with pytest.raises(AssertionError):
+        CooperativeEdgeCluster(ClusterConfig(num_nodes=2), mesh=cache4,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        surviving_topk_lookup(None, None, None, None, 1, mesh=object())
+    # survivors (3) that do not fill the mesh's cache axis (4) take the
+    # pooled probe: the result without a mesh
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(rng.standard_normal((4, 8, 16)).astype(
+        np.float32))
+    q, valid = keys[2, :3], torch.ones((4, 8), dtype=torch.bool)
+    alive = np.array([True, False, True, True])
+    for a, b in zip(surviving_topk_lookup(q, keys, valid, alive, 2,
+                                          mesh=cache4),
+                    surviving_topk_lookup(q, keys, valid, alive, 2)):
+        assert torch.equal(a, b)
     # the slotted cache, several nodes and clusters are served now
     TServe(tm, TServing(), device="cpu")
     TServe(tm, TServing(kv_page=16, coic=TCoIC(num_nodes=4)), device="cpu")
