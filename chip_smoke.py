@@ -118,7 +118,22 @@ Phases, one line each; any failure raises and exits non-zero:
                granite-moe's expert-parallel MoE layer at full width
                against the dense dispatch; K4 and K8 timed at the phase's
                shapes;
- 18. e2e     — the kernel path against the plain path, in fp32 (TF32
+ 18. launch  — the launchers as a user starts them: ``launch.serve`` at
+               llama3.2-1b's full width and depth with the reference's
+               defaults (64 Zipf requests over 16 prompts of 64 tokens,
+               16 new; the slotted cache), then the edge cache's lookup
+               API over the prompts it served: K1-K3, K7 and K8 launched
+               and every launch held; ``launch.train`` on one card (6
+               steps, batch 8 x 256, full depth; K8 launched); the train
+               launcher on (data 2, model 2) as 4 gloo ranks sharing the
+               card under ``torchrun --standalone`` (reduced config, 3
+               steps) against a one-card run of the same config: losses,
+               the first step's gradient and update (rank 0's checkpoint
+               against the one-card run's), and an untrained run of the
+               same batches that the update rule must refuse; one
+               dry-run cell (llama3.2-1b x train_4k, single pod) in a
+               subprocess;
+ 19. e2e     — the kernel path against the plain path, in fp32 (TF32
                off), decoded tokens and sources identical: coic-paper
                attn_impl "paged" vs "gather" on one cluster, lookup_impl
                "auto" vs "ref" on the federated waves, then the slotted
@@ -237,6 +252,7 @@ def main() -> None:
     train_launches, train_held = phase_train(torch)
     families["train"] = (train_launches, None, train_held)
     phase_whisper(torch)
+    families["launch"] = phase_launch(torch)
     mesh_paths = phase_mesh(torch)
     t_phase = time.perf_counter()
     # each kernel's launches on the path that runs it: the single-cluster
@@ -3614,6 +3630,267 @@ def phase_mesh(torch):
                 "held_parent": k8_held,
                 "max_abs_err": max(h["max_abs_err"] for _, h in k8),
                 **{k: v for k, v in k8_row.items() if k != "max_abs_err"}}}
+
+
+# ---------------------------------------------------------------------------
+# 19. launch: the launchers and the dry run, started as a user starts them
+# ---------------------------------------------------------------------------
+
+# the serve launcher at the reference's defaults: 64 requests of a Zipf
+# stream over a pool of 16 prompts of 64 tokens, 16 new tokens each
+LAUNCH_SERVE = ["--arch", "llama3.2-1b"]
+# the train launcher on one card at its default batch (8) and sequence
+# (256), full depth; then the reduced config on (data 2, model 2)
+LAUNCH_TRAIN = ["--arch", "llama3.2-1b", "--steps", "6", "--log-every", "1"]
+LAUNCH_MESH = ["--arch", "llama3.2-1b", "--reduced", "--steps", "3",
+               "--log-every", "1"]
+LAUNCH_DRYRUN = ["--arch", "llama3.2-1b", "--shape", "train_4k",
+                 "--mesh", "single"]
+LAUNCH_KERNELS = SIM_KERNELS + ("decode_attention", "flash_attention")
+LAUNCH_DEADLINE_S = 300
+# the (2, 2) run's first step against the one-card run's, in bf16 compute:
+# each leaf's first moment (0.1 x the clipped gradient) within
+# LAUNCH_GRAD_TOL of the one-card one's norm; AdamW's first step is
+# lr x g / (|g| + eps), so where the one-card |g| is at least LAUNCH_BIG of
+# the leaf's rms gradient the parameters agree within LAUNCH_STEP_TOL, and
+# elsewhere, where bf16's noise may flip the gradient's sign, within 2 x lr
+LAUNCH_GRAD_TOL = 3e-2
+LAUNCH_BIG = 0.1
+LAUNCH_STEP_TOL = 1e-6
+
+
+def capture_every():
+    """Patch the wrappers of K1-K3 (``capture_similarity``), K7 and K8 to
+    keep every launch of the path about to run: its arguments copied (the
+    cache is written in place later) and its output.  Returns (store,
+    restore)."""
+    import repro_torch.kernels.decode_attention.ops as dec_ops
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+
+    store, sim_restore = capture_similarity()
+    mods = {"decode_attention": dec_ops, "flash_attention": fa_ops}
+    orig = {n: getattr(m, f"{n}_cuda") for n, m in mods.items()}
+
+    def keep(name):
+        def call(*args, **kw):
+            out = orig[name](*args, **kw)
+            store[name].append(([a.clone() for a in args], kw, out))
+            return out
+        return call
+    for name, mod in mods.items():
+        store[name] = []
+        setattr(mod, f"{name}_cuda", keep(name))
+
+    def restore():
+        for name, mod in mods.items():
+            setattr(mod, f"{name}_cuda", orig[name])
+        sim_restore()
+    return store, restore
+
+
+def hold_attention(torch, name, calls):
+    """Every launch of K7 or K8 (``name``) a path made, held against its
+    plain version on the same values (``path_agree``); a K7 row with
+    ``kv_len`` 0 (a free slot) sees no key, and the kernel gives exact
+    zeros there (its convention).  Returns the worst of each figure."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    worst = {}
+    for args, kw, out in calls:
+        if name == "flash_attention":
+            rep = path_agree(torch, name, out,
+                             lambda *a: flash_attention_ref(*a, **kw), args)
+        else:
+            live = args[3] > 0
+            assert bool((out[~live] == 0).all()), (name, "free slot")
+            rep = path_agree(torch, name, out, decode_attention_ref, args,
+                             live=live)
+        for k, v in rep.items():
+            worst[k] = max(worst.get(k, v), v)
+    q = calls[0][0][0]
+    return {"held": len(calls), **worst,
+            "shape": f"first: {'x'.join(map(str, q.shape))} {_dt(q.dtype)}"}
+
+
+def run_group(cmd, timeout):
+    """``cmd`` from the repository's root with ``src`` on the path, in a
+    session of its own: killed whole at the deadline.  Returns its
+    stdout; a non-zero exit fails the phase."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"{cmd[2:5]} still running after {timeout} s")
+    assert p.returncode == 0, (cmd, p.returncode, err[-4000:])
+    return out
+
+
+def first_step_gaps(got, one, lr, b1):
+    """``got``'s state after the first step against the one-card run's
+    ``one`` (AdamW's ``b1``) by the rule above the constants
+    ``LAUNCH_*``: (the worst leaf's first-moment error relative to its
+    norm, the share of elements held to ``LAUNCH_STEP_TOL``, their largest
+    gap, the largest gap elsewhere, whether every element keeps its bound,
+    and the largest |g| / rms of an element off by more than
+    ``LAUNCH_STEP_TOL``)."""
+    grad = held = n = 0
+    big_gap = small_gap = off = 0.0
+    for k, mu in one.opt.mu.items():
+        grad = max(grad, ((got.opt.mu[k] - mu).norm() / mu.norm()).item())
+        g = mu.abs() / (1 - b1)
+        rel = g / g.pow(2).mean().sqrt()
+        big = rel >= LAUNCH_BIG
+        gap = (got.params[k] - one.params[k]).abs()
+        held, n = held + int(big.sum()), n + big.numel()
+        big_gap = max(big_gap, gap[big].max().item() if big.any() else 0)
+        small_gap = max(small_gap,
+                        gap[~big].max().item() if (~big).any() else 0)
+        bad = gap > LAUNCH_STEP_TOL
+        off = max(off, rel[bad].max().item() if bad.any() else 0)
+    keeps = big_gap <= LAUNCH_STEP_TOL and small_gap <= 2 * lr
+    return grad, held / n, big_gap, small_gap, keeps, off
+
+
+def phase_launch(torch):
+    """The launchers as a user starts them.  (a) ``launch.serve.main`` at
+    llama3.2-1b's full width and depth with the reference's defaults (the
+    slotted cache), then the edge cache's own lookup API over the prompts
+    it served (K2, K3): K1-K3, K7 and K8 launched, every launch held
+    against its plain version (``hold_similarity``; ``path_agree``); (b)
+    ``launch.train.main`` at llama3.2-1b's full depth on one card (mesh
+    1x1), 6 steps: finite losses, K8 launched; (c) the train launcher on
+    (data 2, model 2) as 4 gloo ranks sharing the card, started with
+    ``torchrun --standalone``, on the reduced config, against a one-card
+    launcher run of the same config: its printed losses within 1e-3
+    (relative; the step computes in bf16), and rank 0's checkpoint of the
+    first step against the one-card run's by ``first_step_gaps``; a run
+    of the same batches at lr 0 must break that rule, and the last
+    checkpoint must be of step 3; (d)
+    ``python -m repro_torch.launch.dryrun`` for llama3.2-1b x train_4k on
+    the single-pod mesh in a subprocess (the meta device: no kernel, no
+    allocation).  Returns (the serve path's launches, its requests, held
+    rows)."""
+    import re
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import cosine_with_warmup
+
+    t0 = time.perf_counter()
+    store, restore = capture_every()
+    reset_launches()                       # the serve path starts here
+    try:
+        eng = lserve.main(LAUNCH_SERVE)
+        args = lserve.parser().parse_args(LAUNCH_SERVE)
+        pool, draws = lserve.zipf_stream(args, eng.model.cfg.vocab_size)
+        hit = edge_lookups(torch, eng, eng.model,
+                           [pool[i] for i in sorted(set(draws))])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(LAUNCHES)              # ... and ends here
+    st = eng.stats()
+    assert st["completed"] == args.requests, st["completed"]
+    toks = np.concatenate([r.tokens for r in eng.results])
+    assert ((toks >= 0) & (toks < eng.model.cfg.vocab_size)).all()
+    for name in LAUNCH_KERNELS:
+        assert launches[name] > 0, ("launch", name, launches)
+        assert len(store[name]) == launches[name], (name, len(store[name]))
+    del eng
+    held = {name: (hold_similarity(torch, name, store[name])
+                   if name in SIM_KERNELS else
+                   hold_attention(torch, name, store[name]))
+            for name in LAUNCH_KERNELS}
+    del store
+    torch.cuda.empty_cache()
+    print(f"launch: (a) launch.serve {' '.join(LAUNCH_SERVE)}: "
+          f"{st['completed']} served (edge {st['edge_hits']}, cloud "
+          f"{st['cloud']}), the lookup API hit all {len(hit)} prompts "
+          f"served; launches {launches}; every launch held: "
+          + "; ".join(f"{n} {h['held']} (max err {h['max_abs_err']:.3g})"
+                      for n, h in held.items()), flush=True)
+
+    reset_launches()
+    _, losses = ltrain.main(LAUNCH_TRAIN)
+    torch.cuda.synchronize()
+    k8 = LAUNCHES["flash_attention"]
+    assert k8 > 0 and all(np.isfinite(losses)), (k8, losses)
+    torch.cuda.empty_cache()
+    print(f"launch: (b) launch.train {' '.join(LAUNCH_TRAIN)}: losses "
+          f"{losses}, K8 {k8} launches", flush=True)
+
+    ck = ROOT / "build" / "chip_launch_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    save = ["--ckpt-every", "1", "--ckpt-dir"]
+    out = run_group([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "4", "-m",
+                     "repro_torch.launch.train", *LAUNCH_MESH,
+                     "--mesh", "2x2", *save, str(ck / "mesh")],
+                    LAUNCH_DEADLINE_S)
+    mesh = [float(x) for _, x in re.findall(r"step +(\d+) loss ([\d.]+)",
+                                            out)]
+    one_state, one = ltrain.main(LAUNCH_MESH + save + [str(ck / "one")])
+    _, frozen = ltrain.main(LAUNCH_MESH + ["--lr", "0"] + save
+                            + [str(ck / "frozen")])
+    assert len(mesh) == len(one), (mesh, one)
+    for a, b in zip(mesh, one):
+        assert abs(a - b) <= 1e-3 * abs(b), ("2x2 vs 1x1", mesh, one)
+    args = ltrain.parser().parse_args(LAUNCH_MESH)
+    lr = float(cosine_with_warmup(args.lr, max(10, args.steps // 10),
+                                  args.steps)(1))
+    first = {d: Checkpointer(str(ck / d)).restore(1, one_state)
+             for d in ("mesh", "one", "frozen")}
+    last = Checkpointer(str(ck / "mesh")).restore(args.steps, one_state)
+    assert int(last.step) == int(one_state.step) == args.steps, last.step
+    b1 = AdamWConfig().b1
+    grad, share, big_gap, small_gap, keeps, off = first_step_gaps(
+        first["mesh"], first["one"], lr, b1)
+    assert grad <= LAUNCH_GRAD_TOL and share > 0.5 and keeps, (
+        "2x2 vs 1x1 first step", grad, share, big_gap, small_gap)
+    _, _, f_big, _, f_keeps, _ = first_step_gaps(
+        first["frozen"], first["one"], lr, b1)
+    assert not f_keeps, ("the untrained run keeps the rule", f_big)
+    del first, last, one_state
+    print(f"launch: (c) torchrun --standalone --nproc-per-node 4 "
+          f"launch.train {' '.join(LAUNCH_MESH)} --mesh 2x2: "
+          f"losses {mesh} (printed, 4 decimals) vs one card {one}, max "
+          f"diff {max(abs(a - b) for a, b in zip(mesh, one)):.3g} (held "
+          f"1e-3 relative, bf16 compute); the lr-0 run's {frozen}; first "
+          f"step (lr {lr:.3g}): first moment within {grad:.3g} of the "
+          f"one-card norm (held {LAUNCH_GRAD_TOL}), {share:.4f} of the "
+          f"elements (|g| >= {LAUNCH_BIG} rms) within {big_gap:.3g} (held "
+          f"{LAUNCH_STEP_TOL}), the rest within {small_gap:.3g} (held 2 x "
+          f"lr), the elements off by more than {LAUNCH_STEP_TOL} at |g| <= "
+          f"{off:.3g} rms; the lr-0 run's first step {f_big:.3g} off there "
+          "(refused, as it must be)", flush=True)
+
+    out_dir = ROOT / "build" / "chip_dryrun"
+    out = run_group([sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *LAUNCH_DRYRUN, "--out", str(out_dir)],
+                    LAUNCH_DEADLINE_S)
+    line = next(ln for ln in out.splitlines() if ln.startswith("[OK]"))
+    rec = json.loads((out_dir / "llama3_2-1b__train_4k__single.json")
+                     .read_text())
+    assert rec["ok"] and rec["cost_analysis"]["flops"] > 0, rec
+    print(f"launch: (d) dryrun {' '.join(LAUNCH_DRYRUN)}: {line}; "
+          f"{rec['collectives']['per_kind']['all-gather']['count']} "
+          f"all-gathers, {rec['collectives']['per_kind']['all-reduce']['count']}"
+          f" all-reduces; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, st["completed"], held
 
 
 if __name__ == "__main__":

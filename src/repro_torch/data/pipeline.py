@@ -80,7 +80,8 @@ def shard_batch(batch: dict, mesh, rules, device="cuda") -> dict:
     dev = resolve_device(device)
     out = {}
     for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v), device=dev)
+        t = (v.to(dev) if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.asarray(v), device=dev))
         axes = ("batch",) + (None,) * (t.dim() - 1)
         out[k] = rules.sharding_for(axes, tuple(t.shape), mesh).place(t)
     return out

@@ -295,6 +295,12 @@ class EncDecLM(nn.Module):
         return {"dec/k": self_kv, "dec/v": self_kv, "cross/k": cross,
                 "cross/v": cross}
 
+    def cache_axes(self) -> Dict[str, tuple]:
+        """Logical axes of each cache leaf, under ``cache_specs``'s
+        names."""
+        a = ("layers", "batch", "cache_seq", "heads", "qk_dim")
+        return {"dec/k": a, "dec/v": a, "cross/k": a, "cross/v": a}
+
     @torch.no_grad()
     def prefill(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor, *,
                 max_len: Optional[int] = None):

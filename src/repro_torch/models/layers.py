@@ -379,6 +379,14 @@ def moe_apply_dense(cfg, w, x: torch.Tensor):
     return _shared_experts(cfg, w, x, out.reshape(B, S, D)), aux
 
 
+def expert_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Assignments per expert id in [0, n): ``bincount(ids, minlength=n)``
+    as a sum of ones into n rows, whose size does not depend on the ids'
+    values (the dry run's ``meta`` tensors have none)."""
+    return torch.zeros(n, dtype=ids.dtype, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def moe_capacity(n_tokens: int, cfg, capacity_factor: float = 1.25) -> int:
     """Slots per expert of a dropless call over ``n_tokens`` tokens."""
     m = cfg.moe
@@ -407,7 +415,7 @@ def moe_apply_dropless(cfg, w, x: torch.Tensor,
     # sorted place less the run's start (the reference's one-hot cumsum,
     # without its (N*k, E) buffer)
     order = torch.argsort(flat_ids, stable=True)
-    counts = torch.bincount(flat_ids, minlength=E)
+    counts = expert_counts(flat_ids, E)
     starts = counts.cumsum(0) - counts
     pos = torch.empty_like(flat_ids)
     pos[order] = (torch.arange(N * k, device=x.device)
@@ -514,7 +522,7 @@ def moe_apply_dropless_ep(cfg, w, x: torch.Tensor,
     # ``moe_apply_dropless``); assignments to other ranks' experts sort
     # into the spare expert E_loc
     order = torch.argsort(loc_ids, stable=True)
-    counts = torch.bincount(loc_ids, minlength=E_loc + 1)
+    counts = expert_counts(loc_ids, E_loc + 1)
     starts = counts.cumsum(0) - counts
     pos = torch.empty_like(loc_ids)
     pos[order] = (torch.arange(N * k, device=x.device)

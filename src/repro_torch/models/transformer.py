@@ -239,6 +239,13 @@ TOP_AXES = {"embed/tokens": ("vocab", "embed"), "final_norm/w": ("embed",),
 # each attention kind's cache leaves, by suffix under "{segment}/{position}/"
 CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"),
                 "ssm": ("conv", "state")}
+_KV_AXES = ("layers", "batch", "cache_seq", "kv_heads", "qk_dim")
+CACHE_AXES = {"attn": (_KV_AXES, _KV_AXES),
+              "mla": (("layers", "batch", "cache_seq", "kv_lora"),
+                      ("layers", "batch", "cache_seq", "qk_dim")),
+              "ssm": (("layers", "batch", "conv_w", "ssm_inner"),
+                      ("layers", "batch", "ssm_heads", "qk_dim",
+                       "ssm_state"))}
 
 
 # matmuls whose outputs ``remat="dots"`` keeps (JAX's checkpoint_dots)
@@ -707,6 +714,16 @@ class DecoderLM(nn.Module):
         """(shape, dtype) of the slotted decode cache leaves; an SSM
         ``state`` is fp32 whatever the model's dtype."""
         return self._specs(batch, max_len, paged=False)
+
+    def cache_axes(self) -> Dict[str, tuple]:
+        """Logical axes of each slotted cache leaf, under
+        ``cache_specs``'s names."""
+        axes = {}
+        for seg in self.plan:
+            for pos, sl in enumerate(seg.pattern):
+                for n, a in zip(CACHE_LEAVES[sl.kind], CACHE_AXES[sl.kind]):
+                    axes[f"{seg.name}/{pos}/{n}"] = a
+        return axes
 
     def paged_cache_specs(self, num_pages: int, page_size: int
                           ) -> Dict[str, Tuple[tuple, torch.dtype]]:

@@ -16,15 +16,54 @@ explicitly: ``.cpu()``, the collective, ``.to(device)``
 The autograd forms (``copy_to``, ``reduce_from``, ``gather_along``,
 ``gather_rows``, ``mean_over``) take the mesh and the names of the mesh
 dimensions they span; each is the identity on a dimension of size 1.
+
+Every collective of the port goes through ``gather_stack`` (all-gather)
+or ``all_reduce``: the expert-parallel MoE dispatch too, whose exchange is
+built from these forms.  Inside ``record_collectives()`` each of the two
+appends a ``Collective`` (kind, bytes of the whole gathered or reduced
+tensor, group size) to the record, the dry run's counterpart of the
+collectives in XLA's compiled program (``launch/collective_bytes.py``).
+``train/elastic.py``'s ``dist.barrier`` calls are not recorded: a barrier
+moves no payload.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import mesh_shape
+
+
+class Collective(NamedTuple):
+    """One collective issued: the reference's kind name, the bytes of the
+    whole gathered (or reduced) tensor, and the group's size."""
+    kind: str
+    bytes: int
+    group: int
+
+
+_RECORD: Optional[List[Collective]] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list that every collective issued inside the context is
+    appended to, in issue order.  Outside it nothing is recorded."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _note(kind: str, whole: torch.Tensor, group) -> None:
+    if _RECORD is not None:
+        _RECORD.append(Collective(kind, whole.numel() * whole.element_size(),
+                                  dist.get_world_size(group)))
 
 
 def host_staged(group, t: torch.Tensor) -> bool:
@@ -42,6 +81,7 @@ def gather_stack(t: torch.Tensor, group) -> torch.Tensor:
         src = src.cpu()                  # gloo: stage through the host
     out = torch.empty((n * src.numel(),), dtype=src.dtype,
                       device=src.device)
+    _note("all-gather", out, group)
     dist.all_gather_into_tensor(out, src.reshape(-1), group=group)
     return out.reshape((n,) + tuple(src.shape)).to(t.device)
 
@@ -51,6 +91,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     src = t.detach().clone()
     if host_staged(group, src):
         src = src.cpu()                  # gloo: stage through the host
+    _note("all-reduce", src, group)
     dist.all_reduce(src, op=op, group=group)
     return src.to(t.device)
 

@@ -33,6 +33,7 @@ from repro_torch.data.pipeline import shard_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.convert import master_params, module_params
+from repro_torch.models.layers import ShapeDtype
 from repro_torch.optim.adamw import AdamW, AdamWConfig, OptState
 from repro_torch.optim.schedule import cosine_with_warmup
 from repro_torch.parallel.collectives import (gather_over, mean_over,
@@ -74,11 +75,14 @@ def init_train_state(model, generator: torch.Generator,
                                        device=model.device))
 
 
-def train_state_shapes(model, tcfg: TrainerConfig):
-    """The abstract state for the dry run and resharding: the launch
-    port's work."""
-    raise NotImplementedError("train_state_shapes serves the dry run "
-                              "(ROADMAP.md Queue 1 item 15, launch)")
+def train_state_shapes(model, tcfg: TrainerConfig) -> TrainState:
+    """The abstract train state (``ShapeDtype`` leaves) for the dry run
+    and resharding: fp32 master weights and moments, int32 counters."""
+    p = {k: ShapeDtype(tuple(v.shape), torch.float32)
+         for k, v in model.init_shapes().items()}
+    scalar = ShapeDtype((), torch.int32)
+    return TrainState(params=p, opt=OptState(mu=p, nu=dict(p), count=scalar),
+                      step=scalar)
 
 
 class _LossGrad(nn.Module):
@@ -334,7 +338,7 @@ def sharded_train_step(model, tcfg: TrainerConfig, mesh,
                                     mesh, rows)
 
     def train_step(state: TrainState, batch: dict):
-        B = int(np.asarray(next(iter(batch.values()))).shape[0])
+        B = int(next(iter(batch.values())).shape[0])
         rows = _batch_rows(RULES_TRAIN.spec_for(("batch",), (B,), mesh))
         local = shard_batch(batch, mesh, RULES_TRAIN, model.device)
         params = {k: compute_param(k, v) for k, v in state.params.items()}

@@ -184,13 +184,23 @@ def test_family_engine_matches_jax(name, kw):
 def _moe_twins():
     """The reduced granite-moe-3b-a800m on both sides with ``dropless``
     forced, its routers leaning to expert 0 (+0.3 on its column) so that
-    the engine's chunks overflow that expert's capacity."""
+    the engine's chunks overflow that expert's capacity.  The reference's
+    init salts each leaf's key with ``hash(name)``, which differs from
+    process to process; here it takes a CRC-32 of the name, so every run
+    draws the same weights (with some draws no assignment of the first
+    prompt drops differently alone and in a batch)."""
+    import zlib
+    from unittest import mock
+
     import jax.numpy as jnp
 
+    import repro.models.transformer as jax_transformer
     from repro.models import build_model as jax_build
     from repro_torch.models import build_model as torch_build
     from repro_torch.models.convert import params_from_jax
-    cfg, jm, jp, tm = twin("granite-moe-3b-a800m", True, "", "dropless")
+    with mock.patch.object(jax_transformer, "hash", create=True,
+                           new=lambda name: zlib.crc32(name.encode())):
+        cfg, jm, jp, tm = twin("granite-moe-3b-a800m", True, "", "dropless")
     jp = dict(jp)
     jp["blocks/0/moe/router"] = jp["blocks/0/moe/router"].at[..., 0].add(0.3)
     tm = torch_build(tm.cfg, device="cpu", moe_impl="dropless")
