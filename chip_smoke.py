@@ -150,6 +150,23 @@ Phases, one line each; any failure raises and exits non-zero:
                its plain version (loss, gradients, parameters), and K8's
                ``FlashAttention`` gradients at the train path's shape
                against plain autograd.
+ 20. shard   — (run after mesh, before e2e) the sharded prefill and the
+               sequence-sharded decode (``serving/sharded.py``) on 4 gloo
+               ranks sharing the card as (data 2, model 2), each rank
+               holding its rows' range of every cache leaf's slots and
+               merging the ranks' partial softmaxes by K7's log-sum-exp:
+               (a) llama3.2-1b at full width under ``RULES_SERVE``, 4
+               right-padded prompts of 200-512 tokens over 1024 slots,
+               fp32 at 2 layers for 16 greedy steps against one card
+               (tokens identical, logits within 1e-4), then bf16 at full
+               depth for 8 steps with every K7 (lse) and K8 launch held;
+               (b) h2o-danube3-4b (2 layers, fp32) under
+               ``RULES_SERVE_LONG``, a 6140-token prompt past its window,
+               8 steps, tokens identical to one card; (c)
+               deepseek-v2-lite-16b (MLA) and mamba2-2.7b (SSM), 2 layers,
+               fp32, 4 prompts of 256, 4 steps, tokens identical; each
+               part's seconds, peak memory per rank, launches per rank and
+               the steps' collectives (count and bytes).
 
 Each phase prints its seconds.
 
@@ -255,13 +272,16 @@ def main() -> None:
     families["launch"] = phase_launch(torch)
     mesh_paths = phase_mesh(torch)
     t_phase = time.perf_counter()
+    shard_launches, shard_paths = phase_shard(torch)
+    lap("shard")
     # each kernel's launches on the path that runs it: the single-cluster
     # serve path (K1-K3, K5), the federated path (K6), the surviving-shard
     # lookup (K4), the sliding-window slotted path (K7, K8)
     paths = {"similarity_topk": (k4_launches, None),
              "ivf_pq_probe": (fed_launches, FED_REQUESTS),
              "decode_attention": (swa_launches, swa_requests),
-             "flash_attention": (swa_launches, swa_requests)}
+             "flash_attention": (swa_launches, swa_requests),
+             "decode_attention_lse": (shard_launches, None)}
     for k in kernels:
         counts, n_req = paths.get(k["name"], (launches, serve["completed"]))
         k["launches"] = counts[k["name"]]
@@ -293,6 +313,8 @@ def main() -> None:
                                     **held.get(k["name"], {})}
         if k["name"] in mesh_paths:
             k["paths"]["mesh"] = mesh_paths[k["name"]]
+        if k["name"] in shard_paths:
+            k["paths"]["shard"] = shard_paths[k["name"]]
     phase_e2e(torch)
     phase_federated_e2e(torch)
     phase_slotted_e2e(torch)
@@ -520,6 +542,7 @@ def phase_kernels(torch):
     kernels.append(check_topk(torch, g, timer))
     kernels.append(check_ivf_pq(torch, g, timer))
     kernels.append(check_decode(torch, g, timer))
+    kernels.append(check_decode_lse(torch, g, timer))
     kernels.append(check_flash(torch, g, timer))
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}, "
@@ -1074,6 +1097,56 @@ def check_decode(torch, g, timer):
                     sdpa_slots(torch, q, k, v, ln)),
             "plain_ms": timer(lambda: decode_attention(q, k, v, ln,
                                                        impl="ref")),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"B={B} Sk={S} H={H} K={K} D={D} kv_len={S} bf16"}
+
+
+def check_decode_lse(torch, g, timer):
+    """K7's lse route (``return_lse``: the sequence-sharded decode's):
+    out and lse against the plain version, fp32 and bf16, with one split
+    (32 slots, one tile) and several (1000 slots), a row with kv_len 0
+    (exact zeros, lse -inf) beside partial and full rows; then timed at
+    the swa path's decode shape beside the default route's time there.
+    Its bound moves the default route's bytes plus the lse written (B * H
+    * 4)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    lse_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for G, K, D in ((4, 8, 120), (48, 1, 128)):
+            for S in (32, 1000):
+                q, k, v, ln = decode_inputs(torch, g, 3, S, K * G, K, D,
+                                            dtype, (0, S // 2 + 1, S))
+                out, lse = decode_attention(q, k, v, ln, return_lse=True)
+                ref, ref_lse = decode_attention(q, k, v, ln, impl="ref",
+                                                return_lse=True)
+                torch.cuda.synchronize()
+                assert int(torch.count_nonzero(out[0])) == 0, "kv_len 0"
+                assert bool(torch.isneginf(lse[0]).all()), "kv_len 0 lse"
+                e = float((out[1:].float() - ref[1:].float()).abs().max())
+                assert e <= ATTN_TOL[_dt(dtype)], ("lse route out", S, e)
+                el = float((lse[1:] - ref_lse[1:]).abs().max())
+                assert el <= SHARD_LSE_TOL, ("lse route lse", S, el)
+                err[_dt(dtype)] = max(err[_dt(dtype)], e)
+                lse_err = max(lse_err, el)
+    B, S, H, K, D = SWA["B"], SWA["Sk"], SWA["H"], SWA["K"], SWA["D"]
+    q, k, v, ln = decode_inputs(torch, g, B, S, H, K, D, torch.bfloat16,
+                                (S,) * B)
+    nbytes, flops = decode_work(q, k, ln)
+    b_ms, b_by = bound(nbytes + B * H * 4, flops, "bfloat16")
+    return {"name": "decode_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
+            "launches": 0, "max_abs_err": err["bfloat16"],
+            "f32_max_abs_err": err["float32"], "lse_max_abs_err": lse_err,
+            **times(timer, lambda: decode_attention(q, k, v, ln,
+                                                    return_lse=True),
+                    sdpa_slots(torch, q, k, v, ln)),
+            "plain_ms": timer(lambda: decode_attention(
+                q, k, v, ln, impl="ref", return_lse=True)),
+            "k7_ms": timer(lambda: decode_attention(q, k, v, ln)),
+            "k7_device_ms": timer.device(lambda: decode_attention(q, k, v,
+                                                                  ln)),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"B={B} Sk={S} H={H} K={K} D={D} kv_len={S} bf16"}
 
@@ -3378,24 +3451,26 @@ def mesh_rank(rank, world, init, out_dir, inputs):
         pickle.dump(res, f)
 
 
-def _spawn_mesh(inputs, out_dir: Path):
-    """Run ``mesh_rank`` on ``MESH_RANKS`` spawned processes; a failed
-    rank, or the deadline, fails the phase (and every rank is stopped)."""
+def _spawn(rank_fn, inputs, out_dir: Path, deadline_s: float):
+    """Run ``rank_fn(rank, world, init, out_dir, inputs)`` on
+    ``MESH_RANKS`` spawned processes and read back each rank's pickle; a
+    failed rank, or the deadline, fails the phase (and every rank is
+    stopped)."""
     import pickle
 
     import torch.multiprocessing as mp
 
     init = "file://" + str(out_dir / "store")
-    ctx = mp.start_processes(mesh_rank, args=(MESH_RANKS, init, str(out_dir),
-                                              inputs),
+    ctx = mp.start_processes(rank_fn, args=(MESH_RANKS, init, str(out_dir),
+                                            inputs),
                              nprocs=MESH_RANKS, join=False,
                              start_method="spawn")
-    deadline = time.perf_counter() + MESH_DEADLINE_S
+    deadline = time.perf_counter() + deadline_s
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
-                raise AssertionError(f"mesh: ranks still running after "
-                                     f"{MESH_DEADLINE_S} s")
+                raise AssertionError(f"{rank_fn.__name__}: ranks still "
+                                     f"running after {deadline_s} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -3437,7 +3512,8 @@ def phase_mesh(torch):
           f"{torch.cuda.get_device_name(0)}; their collectives of CUDA "
           "tensors are staged through host memory (.cpu(), the collective, "
           ".to(device))", flush=True)
-    res = _spawn_mesh((desc, payload, waves), out_dir)
+    res = _spawn(mesh_rank, (desc, payload, waves), out_dir,
+                 MESH_DEADLINE_S)
 
     problems = []
 
@@ -3891,6 +3967,406 @@ def phase_launch(torch):
           f"all-gathers, {rec['collectives']['per_kind']['all-reduce']['count']}"
           f" all-reduces; phase {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, st["completed"], held
+
+
+# ---------------------------------------------------------------------------
+# 20. shard: the sharded prefill and the sequence-sharded decode on 4 ranks
+# ---------------------------------------------------------------------------
+
+# Every decode step gathers its weights over 'data' through host memory
+# (gloo: 0.5 GiB/s between the card's ranks), so the steps are few: each
+# part crosses a rank's slot range a few steps in.
+# (a) llama3.2-1b: 4 right-padded prompts, a cache of 1024 slots (512 a
+# 'model' rank; the 500-token row crosses into the second range at step 12)
+SHARD_A = dict(lengths=(200, 384, 500, 512), max_len=1024, steps=16,
+               bf16_steps=8)
+# (b) h2o-danube3-4b: one prompt past the 4096 window, the ring's slots over
+# (data, model), 1024 a rank; the written slot crosses 2048 at step 4
+SHARD_B = dict(prompt=6140, steps=8)
+# (c) MLA and SSM: 4 prompts of 256, 512 slots (256 a 'model' rank; the
+# first step writes the second range's first slot)
+SHARD_C = dict(B=4, prompt=256, max_len=512, steps=4)
+SHARD_LOGIT_TOL = 1e-4
+SHARD_LSE_TOL = 1e-4
+SHARD_DEADLINE_S = 600
+
+
+def _shard_model(torch, name, layers, dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                              dtype=dtype)
+    return build_model(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def capture_decode_lse():
+    """Patch K7's wrapper to keep every launch of its lse route (the
+    arguments, the cache copied: it is written in place later, and the
+    output); returns (store, restore)."""
+    import repro_torch.kernels.decode_attention.ops as dec_ops
+
+    store, orig = [], dec_ops.decode_attention_cuda
+
+    def keep(*args, **kw):
+        out = orig(*args, **kw)
+        if kw.get("return_lse", False):
+            store.append(([a.clone() if i in (1, 2) else a
+                           for i, a in enumerate(args)], kw, out))
+        return out
+    dec_ops.decode_attention_cuda = keep
+
+    def restore():
+        dec_ops.decode_attention_cuda = orig
+    return store, restore
+
+
+def hold_lse(torch, call) -> dict:
+    """One launch of K7's lse route held against the plain version on the
+    same values: out by ``path_agree`` on the rows with a valid slot, lse
+    within ``SHARD_LSE_TOL`` of the plain version's in fp32 there and
+    exactly -inf on the rows with none (a rank whose slots are past the
+    row's length)."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    args, _, (out, lse) = call
+    args = list(args[:4])
+    live = args[3] > 0
+    rep = path_agree(torch, "decode_attention_lse", out,
+                     decode_attention_ref, args, live=live)
+    wide = [x.float() if x.is_floating_point() else x for x in args]
+    _, ref = decode_attention_ref(*wide, return_lse=True)
+    err = float((lse - ref)[live].abs().max()) if bool(live.any()) else 0.0
+    assert bool(torch.isneginf(lse[~live]).all()), "lse of an empty row"
+    assert err <= SHARD_LSE_TOL, ("decode_attention_lse", "lse", err)
+    return {"max_abs_err": rep["max_abs_err"], "lse_max_abs_err": err,
+            "empty_rows": int((~live).sum())}
+
+
+def _shard_run(torch, model, mesh, rules, tokens, lengths, max_len, steps,
+               one_card):
+    """The sharded prefill of ``tokens`` (B, S) (numpy, right-padded when
+    ``lengths`` is given) and ``steps`` greedy decode steps, each step's
+    tokens gathered whole over the rows; the launches and collectives of
+    the steps alone.  ``one_card``: also the unsharded ``prefill`` and
+    ``decode_step`` on the model's own weights, its tokens against the
+    sharded ones and the largest logit gap while they agree."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.parallel.collectives import record_collectives
+    from repro_torch.serving.sharded import (gather_batch, place_params,
+                                             serve_shardings,
+                                             sharded_decode_step,
+                                             sharded_prefill_step)
+
+    B = tokens.shape[0]
+    sh = serve_shardings(model, mesh, rules, B, max_len)
+    weights = place_params(model, sh.params)
+    pre = sharded_prefill_step(model, mesh, rules)
+    dec = sharded_decode_step(model, mesh, rules, max_len=max_len)
+    ln0 = (np.full((B,), tokens.shape[1], np.int32) if lengths is None
+           else np.asarray(lengths, np.int32))
+    ln, coll = ln0, []
+    sync = (torch.cuda.synchronize if model.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    reset_launches()                       # the path starts here
+    with record_collectives() as rec:
+        lg, cache, _ = pre(weights, {"tokens": tokens}, max_len=max_len,
+                           lengths=None if lengths is None else ln0)
+    coll += rec
+    logits, toks = [gather_batch(lg, mesh, rules, B).float()], []
+    for _ in range(steps):
+        tok = gather_batch(lg.argmax(-1).to(torch.int32), mesh, rules, B)
+        toks.append(tok)
+        with record_collectives() as rec:
+            lg, cache, _ = dec(weights, cache, tok, torch.from_numpy(ln))
+        coll += rec
+        ln = ln + 1
+        logits.append(gather_batch(lg, mesh, rules, B).float())
+    sync()
+    launches = dict(LAUNCHES)              # ... and ends here
+    out = {"seconds": time.perf_counter() - t0, "launches": launches,
+           "collectives": (len(coll), sum(c.bytes for c in coll)),
+           "finite": all(bool(torch.isfinite(x).all()) for x in logits),
+           "tokens": torch.stack(toks).cpu().numpy()}
+    del cache, weights
+    if one_card:
+        t = torch.as_tensor(tokens, device=model.device)
+        n1 = None if lengths is None else torch.as_tensor(
+            ln0, device=model.device)
+        lg1, c1, n1 = model.prefill(t, max_len=max_len, lengths=n1)
+        gap, same = float((lg1.float() - logits[0]).abs().max()), 0
+        for i in range(steps):
+            tok1 = lg1.argmax(-1).to(torch.int32)
+            if not torch.equal(tok1, toks[i]):
+                break
+            same += 1
+            lg1, c1, n1 = model.decode_step(c1, tok1, n1)
+            gap = max(gap, float((lg1.float() - logits[i + 1]).abs().max()))
+        out.update(same_tokens=same, gap=gap)
+        del c1
+    if model.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_part_a(torch, rank, mesh):
+    """(a) llama3.2-1b: fp32 at 2 layers; bf16 at full depth, every K7
+    (lse) and K8 launch held."""
+    import numpy as np
+
+    from repro_torch.parallel.sharding import RULES_SERVE
+
+    a = SHARD_A
+    out = {}
+    for dtype, layers, steps in (("float32", 2, a["steps"]),
+                                 ("bfloat16", 0, a["bf16_steps"])):
+        model = _shard_model(torch, "llama3.2-1b", layers, dtype)
+        rng = np.random.default_rng(11)
+        tokens = rng.integers(0, model.cfg.vocab_size,
+                              size=(4, max(a["lengths"]))).astype(np.int32)
+        held = dtype == "bfloat16"
+        if held:
+            k7, k7_restore = capture_decode_lse()
+            k8, k8_restore = capture_flash(every=True)
+        try:
+            row = _shard_run(torch, model, mesh, RULES_SERVE, tokens,
+                             np.asarray(a["lengths"], np.int32),
+                             a["max_len"], steps, rank == 0)
+        finally:
+            if held:
+                k7_restore()
+                k8_restore()
+        if held:
+            # the sharded path's launches (rank 0's one-card run follows)
+            h7 = [hold_lse(torch, c) for c in k7]
+            h8 = [hold_on_path(torch, "flash_attention", c)
+                  for c in k8[:row["launches"]["flash_attention"]]]
+            row["held"] = {
+                "decode_attention_lse": {
+                    "held": len(h7),
+                    "max_abs_err": max(h["max_abs_err"] for h in h7),
+                    "lse_max_abs_err": max(h["lse_max_abs_err"]
+                                           for h in h7),
+                    "empty_rows": sum(h["empty_rows"] for h in h7)},
+                "flash_attention": {
+                    "held": len(h8),
+                    "max_abs_err": max(h["max_abs_err"] for h in h8),
+                    "shape": h8[0]["shape"]}}
+            del k7, k8
+        out[dtype] = row
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_part_b(torch, rank, mesh):
+    """(b) h2o-danube3-4b, 2 layers, fp32, ``RULES_SERVE_LONG``: one prompt
+    past the window."""
+    import numpy as np
+
+    from repro_torch.parallel.sharding import RULES_SERVE_LONG
+
+    b = SHARD_B
+    model = _shard_model(torch, "h2o-danube3-4b", 2, "float32")
+    tokens = np.random.default_rng(12).integers(
+        0, model.cfg.vocab_size, size=(1, b["prompt"])).astype(np.int32)
+    row = _shard_run(torch, model, mesh, RULES_SERVE_LONG, tokens, None,
+                     b["prompt"] + b["steps"], b["steps"], rank == 0)
+    row["window"] = model.cfg.sliding_window
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def _shard_part_c(torch, rank, mesh):
+    """(c) deepseek-v2-lite-16b (MLA) and mamba2-2.7b (SSM), 2 layers,
+    fp32, ``RULES_SERVE``: 4 prompts of 256."""
+    import numpy as np
+
+    from repro_torch.parallel.sharding import RULES_SERVE
+
+    c = SHARD_C
+    out = {}
+    for name in ("deepseek-v2-lite-16b", "mamba2-2.7b"):
+        model = _shard_model(torch, name, 2, "float32")
+        tokens = np.random.default_rng(13).integers(
+            0, model.cfg.vocab_size, size=(c["B"], c["prompt"])).astype(
+                np.int32)
+        out[name] = _shard_run(torch, model, mesh, RULES_SERVE, tokens, None,
+                               c["max_len"], c["steps"], rank == 0)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_rank(rank, world, init, out_dir, _inputs=None):
+    """One rank of the shard phase: a gloo process on the card, parts (a),
+    (b) and (c) in turn, each part's seconds and peak memory; the results
+    pickled for the parent."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    res = {}
+    for part, fn in (("a", _shard_part_a), ("b", _shard_part_b),
+                     ("c", _shard_part_c)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        res[part] = fn(torch, rank, mesh)
+        dist.barrier()
+        res[part + "_s"] = time.perf_counter() - t0
+        res[part + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if rank == 0:
+            print(f"shard: part {part} done on every rank, "
+                  f"{res[part + '_s']:.1f} s", flush=True)
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _run_text(r) -> str:
+    n, nbytes = r["collectives"]
+    return (f"{r['seconds']:.1f} s, {n} collectives ({nbytes / 2 ** 30:.3f} "
+            "GiB)")
+
+
+def phase_shard(torch):
+    """The sharded serve steps (``serving/sharded.py``) on 4 gloo ranks
+    sharing the card as (data 2, model 2), each rank holding its rows'
+    range of every cache leaf's slots: (a) llama3.2-1b at full width under
+    ``RULES_SERVE``, fp32 at 2 layers against one card (``SHARD_A``'s
+    greedy steps: tokens identical, logits within 1e-4), then bf16 at full
+    depth (every K7 launch, out and lse, and every K8 launch held, the
+    logit gap to one card printed); (b) h2o-danube3-4b (2 layers, fp32)
+    under ``RULES_SERVE_LONG``, a prompt past its window, tokens
+    identical; (c) deepseek-v2-lite-16b (MLA) and mamba2-2.7b (SSM), 2
+    layers, fp32, 4 prompts of 256, tokens identical.  Returns ({kernel: launches summed over the ranks
+    on the path}, {kernel: per-rank launches and held rows})."""
+    import shutil
+
+    import numpy as np
+
+    out_dir = ROOT / "build" / "chip_shard"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    res = _spawn(shard_rank, None, out_dir, SHARD_DEADLINE_S)
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def same_everywhere(get, what):
+        for r, rr in enumerate(res):
+            check(np.array_equal(get(rr)["tokens"], get(res[0])["tokens"]),
+                  f"{what}: rank {r}'s tokens differ from rank 0's")
+            check(get(rr)["finite"], f"{what}: rank {r} logits not finite")
+
+    a32, a16 = res[0]["a"]["float32"], res[0]["a"]["bfloat16"]
+    same_everywhere(lambda rr: rr["a"]["float32"], "(a) fp32")
+    same_everywhere(lambda rr: rr["a"]["bfloat16"], "(a) bf16")
+    check(a32["same_tokens"] == SHARD_A["steps"],
+          f"(a) fp32 tokens agree with one card for {a32['same_tokens']} "
+          f"of {SHARD_A['steps']} steps")
+    check(a32["gap"] <= SHARD_LOGIT_TOL,
+          f"(a) fp32 logits {a32['gap']:.3g} from one card")
+    k7 = [rr["a"]["bfloat16"]["launches"]["decode_attention_lse"]
+          + rr["a"]["float32"]["launches"]["decode_attention_lse"]
+          for rr in res]
+    k8 = [rr["a"]["bfloat16"]["launches"]["flash_attention"]
+          + rr["a"]["float32"]["launches"]["flash_attention"] for rr in res]
+    for r, rr in enumerate(res):
+        h = rr["a"]["bfloat16"]["held"]
+        for name in ("decode_attention_lse", "flash_attention"):
+            n = rr["a"]["bfloat16"]["launches"][name]
+            check(n > 0 and h[name]["held"] == n,
+                  f"(a) rank {r}: {h[name]['held']} of {n} {name} "
+                  "launches held")
+        check(rr["a"]["bfloat16"]["launches"]["decode_attention"] == 0,
+              f"(a) rank {r}: K7 launched without its lse")
+    h7 = [rr["a"]["bfloat16"]["held"]["decode_attention_lse"] for rr in res]
+    h8 = [rr["a"]["bfloat16"]["held"]["flash_attention"] for rr in res]
+    print(f"shard: (a) llama3.2-1b (full width) on (data 2, model 2), "
+          f"RULES_SERVE, prompts {SHARD_A['lengths']}, {SHARD_A['max_len']} "
+          f"slots ({SHARD_A['max_len'] // 2} a rank): fp32 2 layers, "
+          f"{SHARD_A['steps']} steps: "
+          f"tokens equal to one card for {a32['same_tokens']}, max logit "
+          f"gap {a32['gap']:.3g} (held {SHARD_LOGIT_TOL}), "
+          f"{_run_text(a32)} on rank 0; bf16 16 layers, "
+          f"{SHARD_A['bf16_steps']} steps: {a16['same_tokens']} tokens "
+          f"equal to one card, max logit gap {a16['gap']:.3g} while equal, "
+          f"{_run_text(a16)} on rank 0; K7 (lse) launches per rank {k7}, "
+          f"bf16 held {[h['held'] for h in h7]} (out within "
+          f"{max(h['max_abs_err'] for h in h7):.3g}, lse within "
+          f"{max(h['lse_max_abs_err'] for h in h7):.3g}, "
+          f"{[h['empty_rows'] for h in h7]} rows with no slot on the rank: "
+          f"lse -inf, zeros); K8 launches per rank {k8}, bf16 held "
+          f"{[h['held'] for h in h8]} at {h8[0]['shape']} (within "
+          f"{max(h['max_abs_err'] for h in h8):.3g}); {res[0]['a_s']:.1f} s,"
+          f" peak {[round(rr['a_peak_gib'], 2) for rr in res]} GiB per rank",
+          flush=True)
+
+    b = res[0]["b"]
+    same_everywhere(lambda rr: rr["b"], "(b)")
+    check(b["same_tokens"] == SHARD_B["steps"],
+          f"(b) tokens agree with one card for {b['same_tokens']} of "
+          f"{SHARD_B['steps']} steps")
+    print(f"shard: (b) h2o-danube3-4b (full width, 2 layers, fp32) on "
+          f"(data 2, model 2), RULES_SERVE_LONG: a {SHARD_B['prompt']}-token "
+          f"prompt past the {b['window']} window ({b['window'] // 4} of the "
+          f"ring's slots a rank), {SHARD_B['steps']} steps: tokens equal to "
+          f"one card for "
+          f"{b['same_tokens']}, max logit gap {b['gap']:.3g}; "
+          f"{_run_text(b)} on rank 0; K7 (lse) launches per rank "
+          f"{[rr['b']['launches']['decode_attention_lse'] for rr in res]}, "
+          f"K8 {[rr['b']['launches']['flash_attention'] for rr in res]}; "
+          f"{res[0]['b_s']:.1f} s, peak "
+          f"{[round(rr['b_peak_gib'], 2) for rr in res]} GiB per rank",
+          flush=True)
+    for name in ("deepseek-v2-lite-16b", "mamba2-2.7b"):
+        c = res[0]["c"][name]
+        same_everywhere(lambda rr: rr["c"][name], f"(c) {name}")
+        check(c["same_tokens"] == SHARD_C["steps"],
+              f"(c) {name}: tokens agree with one card for "
+              f"{c['same_tokens']} of {SHARD_C['steps']} steps")
+        print(f"shard: (c) {name} (full width, 2 layers, fp32), RULES_SERVE,"
+              f" {SHARD_C['B']} prompts of {SHARD_C['prompt']}, "
+              f"{SHARD_C['steps']} steps: tokens equal to one card for "
+              f"{c['same_tokens']}, max logit gap {c['gap']:.3g}; "
+              f"{_run_text(c)} on rank 0", flush=True)
+    print(f"shard: (c) {res[0]['c_s']:.1f} s, peak "
+          f"{[round(rr['c_peak_gib'], 2) for rr in res]} GiB per rank",
+          flush=True)
+    for p in problems:
+        print(f"shard: FAILED {p}", flush=True)
+    assert not problems, f"shard: {len(problems)} checks failed"
+    counts = {"decode_attention_lse": sum(k7), "flash_attention": sum(k8)}
+    paths = {"decode_attention_lse": {
+                 "launches_per_rank": k7,
+                 "held_per_rank": [h["held"] for h in h7],
+                 "max_abs_err": max(h["max_abs_err"] for h in h7),
+                 "lse_max_abs_err": max(h["lse_max_abs_err"] for h in h7)},
+             "flash_attention": {
+                 "launches_per_rank": k8,
+                 "held_per_rank": [h["held"] for h in h8],
+                 "max_abs_err": max(h["max_abs_err"] for h in h8)}}
+    return counts, paths
 
 
 if __name__ == "__main__":

@@ -43,6 +43,12 @@
 //     row's splits in split order in one online pass.  A row with no valid
 //     slot (kv_len == 0) has l == 0 and finalizes to exact zeros, as the TPU
 //     kernel's l == 0 -> 1 does.
+//   * With an lse buffer (the sequence-sharded decode, whose ranks each
+//     hold a range of the slots and merge their partial softmaxes), the
+//     pass that finalizes a row (the merge, or the split pass itself when
+//     NS == 1) also writes lse = log sum_s exp(scale q.k_s) over the valid
+//     slots in natural log, (m + log2 l) * ln 2 from the base-2 (m, l), and
+//     -inf for a row with no valid slot.  Without it nothing else changes.
 //   * bf16 route (decode_mma_kernel): tensor cores, one m16 tile of query
 //     rows a block (G = 4 pads 12 rows with zeros; G = 48 is 3 tiles).
 //   * fp32 route (decode_fma_kernel): fp32 FMAs (TF32 is off by the parity
@@ -68,6 +74,7 @@ constexpr int kFmaRows = 4;                // query rows of an FMA block
 constexpr int kMmaRows = 16;               // query rows of an mma block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct VecN;         // values per 16-byte load
@@ -82,6 +89,7 @@ struct Params {
   float* ml;                               // [B][K][NS][G][2]: (m, l)
   float* acc;                              // [B][K][NS][G][D]
   void* out;
+  float* lse;                              // [B][H] or nullptr
   int S, H, K, D, G, NS;
   float scale2;                            // softmax scale * log2(e)
 };
@@ -122,6 +130,11 @@ __device__ __forceinline__ size_t partial_row(const Params& p, int b, int kh,
 
 __device__ __forceinline__ int valid_len(const Params& p, int b) {
   return min(max(p.kv_len[b], 0), p.S);
+}
+
+// the natural-log lse of a row from its base-2 (m, l); -inf when l == 0
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l == 0.f ? __int_as_float(0xff800000) : (m + log2f(l)) * kLn2;
 }
 
 // a shared-memory row: DP values and 16 bytes of padding
@@ -239,10 +252,9 @@ __device__ __forceinline__ void finish(const Params& p, const float* wsm,
     }
     if (p.NS == 1) {
       const float inv = 1.f / (L == 0.f ? 1.f : L);
-      store2(static_cast<T*>(p.out) +
-                 (static_cast<size_t>(sp.b) * p.H + sp.kh * p.G + g) * p.D +
-                 d,
-             o0 * inv, o1 * inv);
+      const size_t row = static_cast<size_t>(sp.b) * p.H + sp.kh * p.G + g;
+      store2(static_cast<T*>(p.out) + row * p.D + d, o0 * inv, o1 * inv);
+      if (p.lse != nullptr && d == 0) p.lse[row] = lse_of(M, L);
     } else {
       const size_t row = partial_row(p, sp.b, sp.kh, blockIdx.x, g);
       if (d == 0) store2(p.ml + row * 2, M, L);
@@ -604,6 +616,8 @@ __global__ void decode_merge_kernel(Params p) {
   store2(static_cast<T*>(p.out) + (static_cast<size_t>(b) * p.H + h) * p.D +
              d,
          o0 * inv, o1 * inv);
+  if (p.lse != nullptr && d == 0)
+    p.lse[static_cast<size_t>(b) * p.H + h] = lse_of(mx, lsum);
 }
 
 template <typename Kern>
@@ -650,12 +664,14 @@ cudaError_t launch_dtype(const Params& p, int B, cudaStream_t s) {
 // q (B, H, D), k/v (B, S, K, D), same dtype (f32 or bf16), contiguous,
 // 16-byte aligned; kv_len (B,) i32; n_split >= 1 splits; ws the fp32
 // workspace of B * K * n_split * G * (2 + D) entries when n_split > 1
-// (else unused) -> out (B, H, D) in q's dtype.  H % K == 0, D % 8 == 0,
-// D <= 128.  Returns the first CUDA error of the launches
+// (else unused) -> out (B, H, D) in q's dtype and, when lse is not null,
+// lse (B, H) fp32 in natural log.  H % K == 0, D % 8 == 0, D <= 128.
+// Returns the first CUDA error of the launches
 // (cudaErrorInvalidValue for n_split < 1, or no workspace for several).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* kv_len,
-                                       void* ws, void* out, int B, int S,
+                                       void* ws, void* out, void* lse,
+                                       int B, int S,
                                        int H, int K, int D, int n_split,
                                        float scale, int is_bf16,
                                        void* stream) {
@@ -667,6 +683,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   p.v = v;
   p.kv_len = static_cast<const int*>(kv_len);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.S = S; p.H = H; p.K = K; p.D = D;
   p.G = H / K;
   p.NS = n_split;

@@ -42,6 +42,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_attention": 0,
     "ivf_pq_probe": 0,
     "decode_attention": 0,
+    "decode_attention_lse": 0,
     "flash_attention": 0,
 }
 

@@ -6,7 +6,9 @@ The kernel reads the cache in its sequence-major (B, S, K, D) layout, so
 the wrapper copies nothing.  It checks the inputs, allocates the output
 with ``torch.empty``, launches on the current stream (a split pass and,
 when the cache is split, a merge pass), raises on a launch error, and
-counts one launch per call in ``LAUNCHES["decode_attention"]``.  How the
+counts one launch per call in ``LAUNCHES["decode_attention"]``, or in
+``LAUNCHES["decode_attention_lse"]`` for a call that also asks for each
+row's log-sum-exp (``return_lse``: the sequence-sharded decode's route).  How the
 cache is split (``decode_plan``) depends on the shapes alone and is
 looked up once per shape; the split pass's workspace is the one buffer
 per device and stream of ``_build.workspace``.
@@ -37,7 +39,7 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = load("decode_attention").decode_attention_launch
-    fn.argtypes = [_VP] * 6 + [_I] * 6 + [ctypes.c_float, _I, _VP]
+    fn.argtypes = [_VP] * 7 + [_I] * 6 + [ctypes.c_float, _I, _VP]
     fn.restype = _I
     return fn
 
@@ -62,9 +64,11 @@ def decode_plan(B: int, S: int, K: int, G: int, D: int, bf16: bool,
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          kv_len: torch.Tensor) -> torch.Tensor:
+                          kv_len: torch.Tensor, return_lse: bool = False):
     """q (B, H, D), k/v (B, S, K, D) f32/bf16, kv_len (B,) int32 ->
-    (B, H, D)."""
+    (B, H, D); with ``return_lse`` also lse (B, H) fp32, the natural-log
+    log-sum-exp of each row's scaled logits over its valid slots (-inf
+    where there is none)."""
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     check_attention_inputs(q, (("q", q, (B, H, D)),
@@ -77,6 +81,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"need H % K == 0 and H / K <= {G_MAX} (H={H}, "
                          f"K={K})")
     out = torch.empty_like(q)
+    lse = (torch.full((B, H), float("-inf"), dtype=torch.float32,
+                      device=q.device) if return_lse else None)
     if B and H and S:
         bf16 = q.dtype == torch.bfloat16
         dev = q.get_device()
@@ -84,8 +90,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch._C._cuda_getCurrentRawStream(dev)
         ws = workspace(q, stream, n).data_ptr() if n else None
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    kv_len.data_ptr(), ws, out.data_ptr(), B, S, H, K, D,
+                    kv_len.data_ptr(), ws, out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), B, S, H, K, D,
                     n_split, float(1.0 / np.sqrt(D)), int(bf16), stream)
         check("decode_attention", err, "decode_attention")
-        LAUNCHES["decode_attention"] += 1
-    return out
+        LAUNCHES["decode_attention_lse" if return_lse
+                 else "decode_attention"] += 1
+    return (out, lse) if return_lse else out

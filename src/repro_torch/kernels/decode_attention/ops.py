@@ -20,18 +20,24 @@ from repro_torch.obs.profile import decode_attention_bytes
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor, *, impl: str = "auto"
-                     ) -> torch.Tensor:
+                     kv_len: torch.Tensor, *, impl: str = "auto",
+                     return_lse: bool = False):
     """q: (B, H, D); k/v: (B, S, K, D); kv_len: (B,) valid leading slots per
-    row.  Returns (B, H, D)."""
+    row.  Returns (B, H, D); with ``return_lse``, (out, lse (B, H) fp32):
+    lse = log sum_s exp(q.k_s / sqrt(D)) over the valid slots, natural
+    log, -inf for a row with ``kv_len == 0``.  The sequence-sharded decode
+    merges ranks' partial results by it (``layers.merge_partials``)."""
     impl = resolve_impl(impl, q)
     if impl == "ref":
-        fn = decode_attention_ref
+        def fn(q, k, v, kv_len):
+            return decode_attention_ref(q, k, v, kv_len, return_lse)
     else:
         def fn(q, k, v, kv_len):
-            return decode_attention_cuda(q.contiguous(), k.contiguous(),
-                                         v.contiguous(),
-                                         kv_len.to(torch.int32).contiguous())
+            args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                    kv_len.to(torch.int32).contiguous())
+            if return_lse:
+                return decode_attention_cuda(*args, return_lse=True)
+            return decode_attention_cuda(*args)
     B, S, K, D = (int(s) for s in k.shape)
     return _run("decode_attention", impl, fn, (q, k, v, kv_len),
                 lambda: decode_attention_bytes(B, S, K, D,

@@ -14,9 +14,11 @@ import torch
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_len: torch.Tensor) -> torch.Tensor:
+                         kv_len: torch.Tensor, return_lse: bool = False):
     """q: (B, H, D) one new token per row; k/v: (B, S, K, D); kv_len: (B,)
-    number of valid leading slots per row.  Returns (B, H, D)."""
+    number of valid leading slots per row.  Returns (B, H, D); with
+    ``return_lse`` also lse (B, H) fp32, ``torch.logsumexp`` of the scaled
+    fp32 logits over the valid slots (-inf for a row with none)."""
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -25,7 +27,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
     valid = (torch.arange(S, device=q.device)[None, :]
              < kv_len.to(q.device)[:, None])                   # (B, S)
-    logits = torch.where(valid[:, None, None, :], logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
+    masked = torch.where(valid[:, None, None, :], logits, -1e30)
+    probs = torch.softmax(masked, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(valid[:, None, None, :], logits,
+                                      float("-inf")), dim=-1)
+    return out, lse.reshape(B, H)

@@ -23,21 +23,30 @@ Each cell's JSON artifact holds:
   (``state_shardings`` and the batch rule of ``RULES_TRAIN``); prefill,
   the weights and the batch under ``RULES_SERVE``; decode, the weights,
   the cache (by the model's ``cache_axes``) and the step's inputs under
-  ``RULES_SERVE``, or ``RULES_SERVE_LONG`` for ``long_500k``.  Train cells
-  add ``output_size_in_bytes``, the bytes of the step's outputs.
-* ``cost_analysis.flops`` — ``FlopCounterMode`` over the rank's train step
-  (``make_train_step(model, tcfg, mesh)``: forward, backward and AdamW).
+  ``RULES_SERVE``, or ``RULES_SERVE_LONG`` for ``long_500k``; and
+  ``output_size_in_bytes``, the bytes of the step's outputs (this rank's
+  part of them).
+* ``cost_analysis.flops`` — ``FlopCounterMode`` over the rank's step:
+  the train step (``make_train_step(model, tcfg, mesh)``: forward,
+  backward and AdamW), or the sharded serve step of ``serving/sharded.py``
+  (``sharded_prefill_step`` / ``sharded_decode_step``, the counterparts of
+  the reference's SPMD programs of ``prefill`` / ``decode_step``).
 * ``collectives`` — ``launch/collective_bytes.py::summarize`` of the
   collectives the step issued (``record_collectives``).
 * ``num_devices``, ``seconds_build``, ``seconds_step``, ``seconds_total``,
   ``ok``, ``skipped`` (``supports_cell``), and ``error`` with
   ``traceback`` when a cell fails.
 
-Serve cells (prefill, decode) carry ``cost_analysis`` and ``collectives``
-as null with ``"pending": "ROADMAP item 19"``: the port's serving is
-unsharded, as the reference's engines are, and the reference's serve
-cells are XLA's SPMD programs of a sharded prefill and decode that the
-port does not have yet.  Their argument bytes are exact.
+A serve step's collectives are the port's own choices, where XLA's
+partitioner chose the reference's: each weight gathered at use over the
+axes other than 'model' (``RULES_SERVE``'s ``embed`` over data makes
+every decode step gather the weights), the query heads (and split kv
+heads) gathered over 'model' and each rank's (out, log-sum-exp) gathered
+over the cache's slot dims in a decode step, and an SSM layer's conv and
+state gathered whole over 'model' at every decode step and sliced back (a
+head-local SSM step would send none of that: for mamba2-2.7b x
+decode_32k x single the record holds the whole fp32 states of its 64
+layers, 8 rows x 80 heads x 64 x 128 each, 1.34 GB a rank a step).
 
 What XLA reports and this run cannot is absent, never zero:
 ``temp_size_in_bytes``, ``generated_code_size_in_bytes``,
@@ -74,12 +83,12 @@ from repro_torch.parallel.collectives import record_collectives
 from repro_torch.parallel.sharding import (RULES_SERVE, RULES_SERVE_LONG,
                                            RULES_TRAIN)
 from repro_torch.optim.adamw import OptState
+from repro_torch.serving.sharded import (sharded_decode_step,
+                                         sharded_prefill_step)
 from repro_torch.train.trainer import (TrainerConfig, TrainState,
                                        make_train_step, place_state,
                                        state_shardings, train_state_shapes)
 from repro_torch.utils.tree import leaves_with_paths
-
-PENDING = "ROADMAP item 19"
 
 
 @contextlib.contextmanager
@@ -184,6 +193,27 @@ def cell_arguments(model, cfg, cell, mesh, tcfg: TrainerConfig) -> dict:
                                  _batch_shardings(inputs, mesh, rules))}
 
 
+def cell_step(model, cfg, cell, mesh, tcfg: TrainerConfig, args: dict):
+    """(step, its arguments) of one cell on this rank: the train step, or
+    the sharded prefill / decode step (the reference's ``prefill`` without
+    ``max_len`` but llava's ``max_len=seq_len``, which is the same; an
+    encoder-decoder's decode over a cross cache of ``seq_len``)."""
+    if cell.kind == "train":
+        return (make_train_step(model, tcfg, mesh), args["state"],
+                _metas(batch_specs(cfg, cell)))
+    rules = RULES_SERVE_LONG if cell.name == "long_500k" else RULES_SERVE
+    if cell.kind == "prefill":
+        step = sharded_prefill_step(model, mesh, rules)
+        return step, args["params"], _metas(batch_specs(cfg, cell))
+    _, inputs = decode_specs(model, cfg, cell)
+    inputs = _metas(inputs)
+    step = sharded_decode_step(
+        model, mesh, rules, max_len=cell.seq_len,
+        enc_len=cell.seq_len if cfg.family == "encdec" else None)
+    return (step, args["params"], args["cache"], inputs["tokens"],
+            inputs["lengths"])
+
+
 def plan_cell(arch: str, shape: str, multi_pod: bool, *,
               moe_impl: str = "dropless", remat: str = "",
               microbatches: int = 1) -> dict:
@@ -207,19 +237,15 @@ def plan_cell(arch: str, shape: str, multi_pod: bool, *,
         rec["memory_analysis"] = {"argument_size_in_bytes": _nbytes(args)}
         rec["num_devices"] = math.prod(mesh_shape(mesh).values())
         rec["seconds_build"] = time.time() - t0
-        if cell.kind != "train":
-            rec.update(cost_analysis=None, collectives=None, pending=PENDING)
-        else:
-            t1 = time.time()
-            step = make_train_step(model, tcfg, mesh)
-            # the step takes the host batch, whole on every rank, and
-            # keeps its own rows (``shard_batch``): the slice counted above
-            out, flops, records = count_step(
-                step, args["state"], _metas(batch_specs(cfg, cell)))
-            rec["seconds_step"] = time.time() - t1
-            rec["memory_analysis"]["output_size_in_bytes"] = _nbytes(out)
-            rec["cost_analysis"] = {"flops": float(flops)}
-            rec["collectives"] = summarize(records)
+        t1 = time.time()
+        # a step takes the host batch (inputs), whole on every rank, and
+        # keeps its own rows (``shard_batch``): the slice counted above
+        out, flops, records = count_step(
+            *cell_step(model, cfg, cell, mesh, tcfg, args))
+        rec["seconds_step"] = time.time() - t1
+        rec["memory_analysis"]["output_size_in_bytes"] = _nbytes(out)
+        rec["cost_analysis"] = {"flops": float(flops)}
+        rec["collectives"] = summarize(records)
     rec["ok"] = True
     return rec
 
@@ -262,8 +288,6 @@ def _figures(rec) -> str:
         return ""
     gib = rec["memory_analysis"]["argument_size_in_bytes"] / 2 ** 30
     text = f": {gib:.4f} GiB of arguments per rank"
-    if rec.get("pending"):
-        return text + f"; FLOPs and collectives pending ({rec['pending']})"
     return (text + f", {rec['cost_analysis']['flops'] / 1e12:.4f} TFLOPs per "
             f"rank, {rec['collectives']['total_wire_bytes'] / 2 ** 30:.4f} "
             "GiB on the wire per rank")

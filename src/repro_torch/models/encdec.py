@@ -19,7 +19,13 @@ projects each decoder layer's cross K/V once and fills the decoder's self
 K/V; ``decode_step`` writes one token's K/V in place (a row whose length
 has reached the cache drops its write, as JAX's scatter does) and
 attends.  The serving engine does not take this model, as in the
-reference, whose engine asks ``cache_specs(1, max_len)``.
+reference, whose engine asks ``cache_specs(1, max_len)``.  Under the
+sharded serve steps (``serving/sharded.py``; every weight gathered whole,
+as the model has no tensor-parallel layer) ``prefill`` runs the rank's
+rows and keeps its range of each cache leaf's slots, and ``decode_step``
+attends over them: the self-attention over the rank's slots at or before
+``lengths`` and the cross attention over its encoder positions, each
+with ``layers.partial_attention`` and ``layers.merge_partials``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import serve_sharder
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -309,18 +316,30 @@ class EncDecLM(nn.Module):
         B, Sd = dec_tokens.shape
         max_len = max_len or Sd
         enc_out = self.encode(enc_embeds)
-        cache = {k: torch.zeros(s, dtype=d, device=self.device)
+        sh = serve_sharder()
+        cache = {k: torch.zeros(s if sh is None else sh.local_shape(k, s),
+                                dtype=d, device=self.device)
                  for k, (s, d) in self.cache_specs(
                      B, max_len, enc_out.shape[1]).items()}
+
+        def fill(name, i, val):          # this rank's slots of positions
+            leaf = cache[name][i]
+            n = leaf.shape[1]
+            lo = 0 if sh is None else sh.slot_range(name, n)[0]
+            m = max(0, min(val.shape[1] - lo, n))
+            leaf[:, :m] = val[:, lo:lo + m]
+
         x = self.embed_tokens[dec_tokens.long()] + self.dec_pos[:Sd][None]
         eps = self.cfg.norm_eps
         for i, layer in enumerate(self.dec_layers):
             ck, cv = layer.cross.kv(enc_out)
-            cache["cross/k"][i], cache["cross/v"][i] = ck, cv
+            fill("cross/k", i, ck)
+            fill("cross/v", i, cv)
             sa = layer.self_attn
             h = layer.self_ln(x, eps)
             k, v = sa.kv(h)
-            cache["dec/k"][i, :, :Sd], cache["dec/v"][i, :, :Sd] = k, v
+            fill("dec/k", i, k)
+            fill("dec/v", i, v)
             x = x + sa.out(L.plain_attention(sa.q(h), k, v, causal=True))
             h = layer.cross_ln(x, eps)
             x = x + layer.cross.out(L.plain_attention(
@@ -343,6 +362,10 @@ class EncDecLM(nn.Module):
         tokens, lengths = tokens.to(dev), lengths.to(dev)
         pos = lengths.long().clamp(0, self.MAX_DEC_POSITIONS - 1)
         x = (self.embed_tokens[tokens.long()] + self.dec_pos[pos])[:, None]
+        sh = serve_sharder()
+        if sh is not None:
+            x = self._sharded_decode_layers(sh, x, cache, lengths)
+            return self._logits(x)[:, 0], cache, lengths + 1
         Sk = cache["dec/k"].shape[2]
         mask = (torch.arange(Sk, device=dev)[None, :]
                 <= lengths.long()[:, None])[:, None, :]
@@ -363,3 +386,40 @@ class EncDecLM(nn.Module):
             h = layer.mlp_ln(x, eps)
             x = x + L.gelu_mlp_apply(layer.mlp, h)
         return self._logits(x)[:, 0], cache, lengths + 1
+
+    def _sharded_decode_layers(self, sh, x, cache, lengths):
+        """``decode_step``'s layers over this rank's slots [lo, lo + n) of
+        the self cache's Sk (a row at or past Sk drops its write, as the
+        reference's scatter does) and its range of the encoder positions,
+        merged over the slot dims (``layers.merge_partials``)."""
+        mesh, eps = sh.mesh, self.cfg.norm_eps
+        n = cache["dec/k"].shape[2]
+        lo, _ = sh.slot_range("dec/k", n)
+        rows = torch.arange(x.shape[0], device=x.device)
+        at = lengths.long() - lo
+        mine = ((at >= 0) & (at < n))[:, None, None]
+        at = at.clamp(0, n - 1)
+        kpos = lo + torch.arange(n, device=x.device)
+        valid = (kpos[None, :] <= lengths.long()[:, None])[:, None, :]
+        n_enc = cache["cross/k"].shape[2]
+        every = torch.ones((1, 1, n_enc), dtype=torch.bool, device=x.device)
+        for i, layer in enumerate(self.dec_layers):
+            sa = layer.self_attn
+            h = layer.self_ln(x, eps)
+            k, v = sa.kv(h)
+            kc, vc = cache["dec/k"][i], cache["dec/v"][i]
+            kc[rows, at] = torch.where(mine, k[:, 0], kc[rows, at])
+            vc[rows, at] = torch.where(mine, v[:, 0], vc[rows, at])
+            attn = L.merge_partials(*L.partial_attention(sa.q(h), kc, vc,
+                                                         valid),
+                                    mesh, sh.slots("dec/k"))
+            x = x + sa.out(attn)
+            h = layer.cross_ln(x, eps)
+            ca = layer.cross
+            attn = L.merge_partials(*L.partial_attention(
+                ca.q(h), cache["cross/k"][i], cache["cross/v"][i], every),
+                mesh, sh.slots("cross/k"))
+            x = x + ca.out(attn)
+            h = layer.mlp_ln(x, eps)
+            x = x + L.gelu_mlp_apply(layer.mlp, h)
+        return x

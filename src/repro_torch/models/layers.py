@@ -14,6 +14,11 @@ mixture of experts (top-k softmax router; ``dense`` one-hot dispatch and
 ``dropless`` capacity buffers).  ``init_leaf`` copies the reference's
 initializer distribution for random weights at published widths.
 
+The sequence-sharded decode (``serving/sharded.py``) attends over each
+rank's range of cache slots: ``partial_attention`` (GQA / MHA) and
+``mla_partial`` (MLA's latent) return a rank's normalised output and the
+log-sum-exp of its logits, and ``merge_partials`` combines the ranks'.
+
 The expert products are plain ``bmm``/``einsum`` calls, as in the
 reference, which computes them outside any Pallas kernel.
 """
@@ -27,7 +32,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.parallel.collectives import (copy_to, gather_along,
-                                              gather_rows, mean_over,
+                                              gather_over, gather_rows,
+                                              live_dims, mean_over,
                                               rank_index, reduce_from,
                                               scatter_to)
 from repro_torch.parallel.sharding import constrain, current_sharder
@@ -162,6 +168,65 @@ def mha_cross_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def softmax_partial(logits: torch.Tensor, valid: torch.Tensor):
+    """(probs, lse) of fp32 ``logits`` (..., Sk) over the ``valid`` keys
+    (broadcastable): ``probs`` the reference's softmax of the logits with
+    invalid keys filled with -1e30 (a row with no valid key averages them,
+    as the plain attention does), ``lse`` their log-sum-exp over the valid
+    keys alone, -inf for a row with none."""
+    probs = torch.softmax(torch.where(valid, logits, -1e30), dim=-1)
+    lse = torch.logsumexp(torch.where(valid, logits, float("-inf")), dim=-1)
+    return probs, lse
+
+
+def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor, *, scale: Optional[float] = None):
+    """``gqa_attention`` over the keys a rank holds, with its log-sum-exp.
+    q: (B, Sq, H, D); k/v: (B, Sk, K, D); valid: broadcastable to (B, Sq,
+    Sk).  Returns (out (B, Sq, H, D), lse (B, Sq, H) fp32); a row with no
+    valid key has lse -inf, so ``merge_partials`` gives it weight 0."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    scale = scale if scale is not None else 1.0 / np.sqrt(D)
+    qg = q.reshape(B, Sq, K, H // K, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    probs, lse = softmax_partial(logits, valid[:, None, None, :, :])
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D), lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Partials stacked over the ranks that split the keys, outs (n, ...,
+    H, D) and lses (n, ..., H) fp32 -> the attention over all their keys:
+    sum_r exp(lse_r - m) out_r / sum_r exp(lse_r - m), m the largest lse,
+    in fp32, cast to ``dtype``.  A part with no valid key (lse -inf)
+    weighs exactly 0; every row has one valid key somewhere (a decode step
+    writes its own token first), so m must be finite, which is asserted on
+    the device."""
+    m = lses.max(dim=0).values
+    torch._assert_async(torch.isfinite(m).all(),
+                        "combine_partials: a row with no valid key")
+    w = torch.exp(lses - m)
+    merged = (outs.float() * w[..., None]).sum(0) / w.sum(0)[..., None]
+    return merged.to(dtype)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, mesh,
+                   names) -> torch.Tensor:
+    """The attention over every rank's keys from each rank's partial
+    (out (..., H, D), lse (..., H) fp32) over the mesh dimensions
+    ``names`` that split the keys: one all-gather of (out, lse) per
+    dimension, then ``combine_partials`` in rank order.  Every rank
+    combines the same gathered values: the same bits on each."""
+    names = live_dims(mesh, names)
+    if not names:
+        return out
+    packed = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+    parts = gather_over(packed[None], mesh, names, 0)
+    return combine_partials(parts[..., :-1], parts[..., -1], out.dtype)
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool) -> torch.Tensor:
     """The reference's ``causal_attention`` at positions 0..Sq-1 against
@@ -294,6 +359,27 @@ def mla_attention(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
         attn = attend(q_nope, q_rope,
                       attention_mask(q_positions, k_positions, causal=True))
     return torch.einsum("bshe,hed->bsd", attn, blk.wo)
+
+
+def mla_partial(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
+                k_rope: torch.Tensor, q_positions: torch.Tensor,
+                valid: torch.Tensor):
+    """``mla_attention``'s core over the latent slots a rank holds, before
+    the output projection: (attn (B, Sq, H, dv), lse (B, Sq, H) fp32).
+    ``valid`` (B, Sq, Sk) marks the rank's visible slots."""
+    m = cfg.mla
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = torch.einsum("bsd,dhe->bshe", x, blk.wq)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, q_positions, cfg.rope_theta)
+    k_nope = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uk)
+    v = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uv)
+    logits = (torch.einsum("bshe,bthe->bhst", q_nope, k_nope)
+              + torch.einsum("bshe,bte->bhst", q_rope, k_rope)
+              ).float() * (1.0 / np.sqrt(dn + dr))
+    probs, lse = softmax_partial(logits, valid[:, None, :, :])
+    attn = torch.einsum("bhst,bthe->bshe", probs.to(v.dtype), v)
+    return attn, lse.transpose(1, 2)
 
 
 def _same(t):

@@ -40,6 +40,18 @@ columns, the embedding and the logits on its vocabulary rows, and the
 partial results are summed over 'model' (``parallel/collectives.py``).
 ``constrain`` marks the reference's activation-sharding sites.
 
+Under the sharded serve steps (``serving/sharded.py``) the same forward
+runs ``prefill`` on the rank's rows and heads, and each rank keeps its
+range of every cache leaf's slots (its slice of an SSM layer's conv and
+state), which ``init_cache`` allocates.  A slotted decode step then
+attends over the rank's slots only: GQA gathers the query heads (and the
+kv heads, when they are split) over 'model', the rank that owns slot
+``lengths % Sk`` writes the new k/v (``torch.where``, no host sync), K7
+returns its partial output and log-sum-exp over the rank's valid slots,
+and ``layers.merge_partials`` combines the ranks; MLA does the same over
+its latent (plain, ``layers.mla_partial``); an SSM layer gathers its
+conv and state whole over the rank's rows, steps, and keeps its slice.
+
 ``attention_impl`` (``auto`` | ``cuda`` | ``ref``) picks the GQA
 attention of full sequences (``forward``, ``forward_hidden``,
 ``prefill``: the flash-attention kernel K8) and of slotted decode steps
@@ -91,8 +103,9 @@ from repro_torch.kernels.paged_attention import (paged_attention,
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.parallel.collectives import (copy_to, gather_along,
-                                              reduce_from)
-from repro_torch.parallel.sharding import constrain, model_sharder
+                                              reduce_from, slice_over)
+from repro_torch.parallel.sharding import (constrain, model_sharder,
+                                           serve_sharder)
 
 INVALID_PAGE = 2 ** 30
 
@@ -518,9 +531,12 @@ class DecoderLM(nn.Module):
             reduce=lambda t: reduce_from(t, tp.mesh, ("model",)))
         return x + y, None
 
-    def _layer_fwd(self, blk, x, positions):
+    def _layer_fwd(self, blk, x, positions, for_cache: bool = False):
         """One layer over a full sequence: (x, the values its cache keeps:
-        (k, v), (c_kv, k_rope) or (conv, state), the MoE aux or None)."""
+        (k, v), (c_kv, k_rope) or (conv, state), the MoE aux or None).
+        ``for_cache`` under split heads: (k, v) of every kv head, which a
+        rank's slots of the cache hold (gathered over 'model' when the kv
+        heads are split too)."""
         cfg = self.cfg
         if blk.kind == "ssm":
             h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
@@ -539,8 +555,12 @@ class DecoderLM(nn.Module):
                 h = copy_to(h, tp.mesh, ("model",))
                 w = _tp_weights(cfg, tp, blk)
             q, k, v = L.attention_qkv(cfg, w, h, positions)
+            new = (k, v)
             if tp is not None:
                 k, v = _local_kv(cfg, tp, q, k, v)
+                if for_cache and new[0].shape[2] < cfg.num_kv_heads:
+                    new = tuple(gather_along(t, tp.mesh, ("model",), 2)
+                                for t in new)
             # the sharded train step: K8 on this rank's heads only
             attn = L.causal_attention(q, k, v, window=cfg.sliding_window,
                                       impl=self.attention_impl)
@@ -548,18 +568,23 @@ class DecoderLM(nn.Module):
             if tp is not None:
                 out = reduce_from(out, tp.mesh, ("model",))
             x = x + out
-            new = (k, v)
+            if not for_cache:
+                new = (k, v)
         x, aux = self._mlp(blk, x)
         return x, new, aux
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device)[None, :].expand(B, S)
 
+    def _names_of(self, i):
+        """Layer i's cache leaf names."""
+        return [f"{self._at[i][0]}/{n}"
+                for n in CACHE_LEAVES[self.layers[i].kind]]
+
     def _leaves_of(self, cache, i):
         """Layer i's cache leaves (its repeat's row of each)."""
-        base, r, _ = self._at[i]
-        return [cache[f"{base}/{n}"][r]
-                for n in CACHE_LEAVES[self.layers[i].kind]]
+        r = self._at[i][1]
+        return [cache[n][r] for n in self._names_of(i)]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -736,7 +761,11 @@ class DecoderLM(nn.Module):
         return self._specs(num_pages, page_size, paged=True)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.zeros(s, dtype=d, device=self.device)
+        """A zero slotted cache; under a serve sharder, this rank's part of
+        one (``batch`` is then the rank's rows)."""
+        sh = serve_sharder()
+        return {k: torch.zeros(s if sh is None else sh.local_shape(k, s),
+                               dtype=d, device=self.device)
                 for k, (s, d) in self.cache_specs(batch, max_len).items()}
 
     @torch.no_grad()
@@ -752,28 +781,37 @@ class DecoderLM(nn.Module):
         cache, lengths); with ``lengths`` (a right-padded batch) logits
         come from each row's true last token.  A ring rotates by the
         padded length and a recurrent state absorbs the pads, so the
-        serving engine prefills those models at exact lengths."""
+        serving engine prefills those models at exact lengths.  Under a
+        serve sharder the rows are this rank's, and so is the cache: its
+        range of the slots of each leaf (after the ring's rotation), its
+        slice of an SSM layer's states."""
         x = self.embed(tokens, image_embeds)
         B, S = x.shape[:2]
         max_len = max_len or S
         cache = self.init_cache(B, max_len)
         positions = self._positions(B, S)
+        sh = serve_sharder()
         for i, blk in enumerate(self.layers):
             # reference: transformer.py:552 (the prefill body)
             x = constrain(x, ("batch", None, "act_embed"))
-            x, new, _ = self._layer_fwd(blk, x, positions)
-            for leaf, val in zip(self._leaves_of(cache, i), new):
-                Sk = leaf.shape[1]
+            x, new, _ = self._layer_fwd(blk, x, positions, for_cache=True)
+            for name, leaf, val in zip(self._names_of(i),
+                                       self._leaves_of(cache, i), new):
                 if blk.kind == "ssm":
-                    leaf.copy_(val)
-                elif Sk < S:
+                    leaf.copy_(val if sh is None else sh.keep(name, val))
+                    continue
+                # this rank's slots [lo, lo + n) of the leaf's Sk
+                n = leaf.shape[1]
+                lo, Sk = (0, n) if sh is None else sh.slot_range(name, n)
+                if Sk < S:
                     # ring: decode expects slot = position % Sk; the last
                     # Sk positions start at S - Sk, so rotate them into
                     # ring order
                     leaf.copy_(torch.roll(val[:, -Sk:], (S - Sk) % Sk,
-                                          dims=1))
+                                          dims=1)[:, lo:lo + n])
                 else:
-                    leaf[:, :S] = val
+                    m = max(0, min(S - lo, n))
+                    leaf[:, :m] = val[:, lo:lo + m]
         rows = torch.arange(B, device=self.device)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32,
@@ -905,10 +943,21 @@ class DecoderLM(nn.Module):
             x, _ = self._mlp(blk, x + y)
         return x
 
-    def _ssm_cached(self, blk, h, leaves, decode):
+    def _ssm_cached(self, blk, h, leaves, decode, names=None):
         """An SSM layer from its cached (conv, state), both written back in
-        place: one recurrence step (``decode``) or the chunked scan."""
+        place: one recurrence step (``decode``) or the chunked scan.  Under
+        a serve sharder (``names`` given) the step reads the states
+        gathered whole over the dims that split them (the channels and
+        heads over 'model'), and each rank keeps its slice."""
         conv, state = leaves
+        sh = serve_sharder() if names is not None else None
+        if sh is not None:
+            y, new_conv, new_state = S.ssm_decode_step(
+                self.cfg, blk, h, sh.whole(names[0], conv),
+                sh.whole(names[1], state))
+            conv.copy_(sh.keep(names[0], new_conv))
+            state.copy_(sh.keep(names[1], new_state))
+            return y
         if decode:
             y, new_conv, new_state = S.ssm_decode_step(self.cfg, blk, h,
                                                        conv, state)
@@ -995,16 +1044,23 @@ class DecoderLM(nn.Module):
         Sk)`` in [0, lengths] and, for a ring of Sk <= window slots, inside
         the window).  MLA: the latent goes to slot ``lengths % Sk``, then
         plain attention over the slots at or before ``lengths``.  SSM: one
-        recurrence step."""
+        recurrence step.  Under a serve sharder each layer is its
+        sequence-sharded form (``_sharded_decode``)."""
         cfg = self.cfg
         rows = torch.arange(x.shape[0], device=x.device)
+        sh = serve_sharder()
         for i, blk in enumerate(self.layers):
             # reference: transformer.py:919 (the decode body)
             x = constrain(x, ("batch", None, "act_embed"))
             leaves = self._leaves_of(cache, i)
             if blk.kind == "ssm":
                 h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
-                y = self._ssm_cached(blk, h, leaves, decode=True)
+                y = self._ssm_cached(blk, h, leaves, decode=True,
+                                     names=self._names_of(i))
+            elif sh is not None:
+                h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+                y = self._sharded_decode(sh, blk, h, positions, lengths,
+                                         self._names_of(i), leaves)
             else:
                 h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
                 Sk = leaves[0].shape[1]
@@ -1023,3 +1079,53 @@ class DecoderLM(nn.Module):
                     y = L.attention_out(blk, attn[:, None])
             x, _ = self._mlp(blk, x + y)
         return x
+
+    def _sharded_decode(self, sh, blk, h, positions, lengths, names, leaves):
+        """One GQA or MLA layer of a decode step over this rank's range [lo,
+        lo + n) of the Sk slots (``sh.slot_range``): the owner of slot
+        ``lengths % Sk`` writes the token, the rank attends over its valid
+        slots, min(lengths + 1, Sk) - lo of them clamped to [0, n], and
+        ``merge_partials`` combines the ranks over the slot dims.  GQA with
+        split heads gathers q (and split kv heads) over 'model' first and
+        projects out its own heads' slice after the merge."""
+        cfg, mesh = self.cfg, sh.mesh
+        slots = sh.slots(names[0])
+        n = leaves[0].shape[1]
+        lo, Sk = sh.slot_range(names[0], n)
+        rows = torch.arange(h.shape[0], device=h.device)
+        at = lengths.long() % Sk - lo
+        mine = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+
+        def write(leaf, val):                      # in place, owner only
+            keep = mine.reshape((-1,) + (1,) * (val.dim() - 1))
+            leaf[rows, at] = torch.where(keep, val, leaf[rows, at])
+
+        if blk.kind == "mla":
+            for leaf, val in zip(leaves, L.mla_latent(cfg, blk, h,
+                                                      positions)):
+                write(leaf, val[:, 0])
+            kpos = lo + torch.arange(n, device=h.device)
+            valid = (kpos[None, :] <= lengths.long()[:, None])[:, None, :]
+            attn, lse = L.mla_partial(cfg, blk, h, *leaves, positions, valid)
+            attn = L.merge_partials(attn, lse, mesh, slots)
+            return torch.einsum("bshe,hed->bsd", attn, blk.wo)
+        tp = blk.wq.shape[1] < cfg.num_heads
+        w = _tp_weights(cfg, sh, blk) if tp else blk
+        q, k, v = L.attention_qkv(cfg, w, h, positions)
+        if tp:
+            q = gather_along(q, mesh, sh.heads, 2)
+            if k.shape[2] < cfg.num_kv_heads:
+                k, v = (gather_along(t, mesh, ("model",), 2) for t in (k, v))
+        kc, vc = leaves
+        write(kc, k[:, 0])
+        write(vc, v[:, 0])
+        kv_len = (torch.clamp(lengths + 1, max=Sk) - lo).clamp(0, n)
+        out, lse = decode_attention(q[:, 0], kc, vc, kv_len.to(torch.int32),
+                                    impl=self.attention_impl,
+                                    return_lse=True)
+        out = L.merge_partials(out, lse, mesh, slots)
+        if tp:                                   # this rank's heads of wo
+            out = slice_over(out, mesh, sh.heads, 1)
+        y = L.attention_out(blk, out[:, None])
+        return reduce_from(y, mesh, ("model",)) if tp else y

@@ -96,17 +96,18 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return src.to(t.device)
 
 
-def _live(mesh, names: Sequence[str]) -> list:
+def live_dims(mesh, names: Sequence[str]) -> list:
     """The mesh dimensions of ``names`` that the mesh has with size > 1, in
     the mesh's order."""
     sizes = mesh_shape(mesh)
     return [a for a in sizes if a in names and sizes[a] > 1]
 
 
+
 def reduce_over(t: torch.Tensor, mesh, names: Sequence[str],
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced by ``op`` over the mesh dimensions ``names``."""
-    for a in _live(mesh, names):
+    for a in live_dims(mesh, names):
         t = all_reduce(t, mesh.get_group(a), op)
     return t
 
@@ -131,7 +132,7 @@ def gather_over(t: torch.Tensor, mesh, names: Sequence[str], d: int):
     return t
 
 
-def _by_dim(mesh, placements) -> dict:
+def by_dim(mesh, placements) -> dict:
     """{tensor dim: the mesh dims (in mesh order) that shard it}."""
     from torch.distributed.tensor import Shard
     out: dict = {}
@@ -144,14 +145,14 @@ def _by_dim(mesh, placements) -> dict:
 def local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's slice of the full value ``t`` under ``placements`` (a
     contiguous copy; no communication)."""
-    for d, names in _by_dim(mesh, placements).items():
+    for d, names in by_dim(mesh, placements).items():
         t = slice_over(t, mesh, names, d)
     return t.contiguous()
 
 
 def unshard(local: torch.Tensor, mesh, placements) -> torch.Tensor:
     """The full value from every rank's ``local`` slice (all-gathers)."""
-    for d, names in _by_dim(mesh, placements).items():
+    for d, names in by_dim(mesh, placements).items():
         local = gather_over(local, mesh, names, d)
     return local
 
@@ -217,7 +218,7 @@ class _MeanOver(torch.autograd.Function):
     def forward(ctx, x, mesh, names):
         ctx.mesh, ctx.names = mesh, names
         ctx.n = 1
-        for a in _live(mesh, names):
+        for a in live_dims(mesh, names):
             ctx.n *= mesh_shape(mesh)[a]
         return reduce_over(x, mesh, names) / ctx.n
 
@@ -229,20 +230,20 @@ class _MeanOver(torch.autograd.Function):
 def copy_to(x, mesh, names):
     """Identity forward; the gradient summed over ``names`` backward (a
     replicated input that each rank uses for its own part)."""
-    names = _live(mesh, names)
+    names = live_dims(mesh, names)
     return _CopyTo.apply(x, mesh, names) if names else x
 
 
 def reduce_from(x, mesh, names):
     """Summed over ``names`` forward (partial results); identity backward."""
-    names = _live(mesh, names)
+    names = live_dims(mesh, names)
     return _ReduceFrom.apply(x, mesh, names) if names else x
 
 
 def gather_along(x, mesh, names, d: int):
     """The slices of ``names`` concatenated along ``d`` forward; this
     rank's slice of the gradient backward (the consumer is replicated)."""
-    names = _live(mesh, names)
+    names = live_dims(mesh, names)
     return _GatherAlong.apply(x, mesh, names, d) if names else x
 
 
@@ -250,7 +251,7 @@ def scatter_to(x, mesh, names, d: int):
     """This rank's slice along ``d`` forward (of a value every rank holds
     whole); the slices' gradients gathered whole backward, so every rank
     gets the whole gradient."""
-    names = _live(mesh, names)
+    names = live_dims(mesh, names)
     return _ScatterTo.apply(x, mesh, names, d) if names else x
 
 
@@ -259,7 +260,7 @@ def rank_index(mesh, names) -> tuple:
     major first: the chunk of a dimension split over them."""
     sizes = mesh_shape(mesh)
     idx, n = 0, 1
-    for a in _live(mesh, names):
+    for a in live_dims(mesh, names):
         idx = idx * sizes[a] + mesh.get_local_rank(a)
         n *= sizes[a]
     return idx, n
@@ -269,11 +270,11 @@ def gather_rows(x, mesh, names):
     """Every rank's rows forward; backward the gradient summed over
     ``names`` and sliced to this rank's rows (a reduce-scatter: each rank's
     consumer differs)."""
-    names = _live(mesh, names)
+    names = live_dims(mesh, names)
     return _GatherRows.apply(x, mesh, names) if names else x
 
 
 def mean_over(x, mesh, names):
     """The mean over ``names`` forward and backward."""
-    names = _live(mesh, names)
+    names = live_dims(mesh, names)
     return _MeanOver.apply(x, mesh, names) if names else x

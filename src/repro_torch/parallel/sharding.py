@@ -17,9 +17,13 @@ the major axis first, as XLA lays it out.
 Rule sets (``RULES_TRAIN``, ``RULES_SERVE``, ``RULES_SERVE_LONG``) are
 copied from the reference with their comments.  The activation sharder
 (``set_activation_sharder``) tells the models which mesh dimensions split
-the batch's rows and the heads; ``constrain`` marks the reference's
-``with_sharding_constraint`` sites and returns its input, because every
-rank holds plain tensors (its own slices), never a ``DTensor``.
+the batch's rows and, under the sharded serve steps
+(``serving/sharded.py``), the query heads and each cache leaf's
+dimensions (its ``Sharding``: the slots for attention and MLA, the
+channels and heads for SSM states), all from the rules' ``spec_for``;
+``constrain`` marks the reference's ``with_sharding_constraint`` sites and
+returns its input, because every rank holds plain tensors (its own
+slices), never a ``DTensor``.
 
 Cache-probe collectives
 -----------------------
@@ -72,7 +76,9 @@ from repro_torch.kernels.similarity import (similarity_topk,
 from repro_torch.kernels.similarity.ops import _run
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.obs.profile import digest_probe_bytes, ivf_pq_probe_bytes
-from repro_torch.parallel.collectives import (gather_stack, local_slice,
+from repro_torch.parallel.collectives import (by_dim, gather_over,
+                                              gather_stack, local_slice,
+                                              rank_index, slice_over,
                                               unshard)
 
 Spec = Tuple[object, ...]
@@ -211,6 +217,11 @@ RULES_SERVE = _mk({
     "act_embed": [("model",)],
     # KV cache: kv_heads over model when divisible (rule above), else the
     # cache_seq dim shards over model => GSPMD flash-decode
+    # (What the rules do: ``spec_for`` gives mesh axes to a tensor's dims in
+    # order, and a cache leaf is (layers, batch, cache_seq, kv_heads,
+    # qk_dim), so cache_seq takes 'model' whenever it divides and kv_heads
+    # then stays whole.  Every decode cell's cache is split by slots, and
+    # its step is the sequence-sharded flash-decode.)
     "cache_seq": [("model",)],
 })
 
@@ -244,6 +255,40 @@ def logical_to_sharding(tree_axes: dict, tree_shapes: dict, mesh,
             for k in tree_axes}
 
 
+def batch_rows(rules: ShardingRules, mesh, batch: int) -> tuple:
+    """The mesh dims that ``rules`` split a batch of ``batch`` rows over
+    (empty where the batch stays whole)."""
+    spec = rules.spec_for(("batch",), (batch,), mesh)
+    if not spec or spec[0] is None:
+        return ()
+    return spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+
+
+def tp_dims(model, shardings: Dict[str, Sharding]) -> Dict[str, object]:
+    """{weight: the tensor dim whose 'model' slice the forward computes
+    with, or None: gathered whole}.  The forward slices
+    ``model.tp_leaves()`` (an ``EncDecLM`` none) where the rules split
+    exactly one dim over 'model' alone."""
+    tp_ok = getattr(model, "tp_leaves", set)()
+
+    def dim(sh):
+        return next((d for d, ax in by_dim(sh.mesh, sh.placements).items()
+                     if ax == ["model"]), None)
+    return {k: dim(sh) if k in tp_ok else None for k, sh in shardings.items()}
+
+
+def compute_weight(local: torch.Tensor, sh: Sharding, keep) -> torch.Tensor:
+    """The weight a rank computes with, from its slice under ``sh``:
+    gathered over every mesh dim that splits it (the FSDP gather at use),
+    except 'model' when the forward computes with the 'model' slice of
+    dim ``keep`` (``tp_dims``)."""
+    from torch.distributed.tensor import Replicate
+
+    gather = tuple(Replicate() if (a == "model" and keep is not None) else p
+                   for a, p in zip(mesh_shape(sh.mesh), sh.placements))
+    return unshard(local, sh.mesh, gather)
+
+
 # ---------------------------------------------------------------------------
 # Activation sharding hook (called at the reference's sites in the models)
 # ---------------------------------------------------------------------------
@@ -256,19 +301,79 @@ class ActivationSharder:
     """The installed hook: the mesh the models split heads, MLPs,
     vocabulary and experts over, and ``rows``, the mesh dimensions that the
     batch's rows are split over when each rank holds only its own rows
-    (the sharded train step); empty when every rank holds the whole
-    batch."""
+    (the sharded train and serve steps); empty when every rank holds the
+    whole batch.  The serve steps also give ``heads``, the mesh dimensions
+    that split the query heads, and ``cache``, {cache leaf: ``Sharding``}
+    of the full leaves: a rank holds its slice of each, with its rows."""
 
     mesh: object
     rows: tuple = ()
+    heads: tuple = ()
+    cache: dict = dataclasses.field(default_factory=dict)
+
+    def cache_dims(self, name: str) -> dict:
+        """{leaf dim: the mesh dims that split it} of a cache leaf, the
+        layers (dim 0) and rows (dim 1) left out: the rows are already
+        this rank's.  Empty for a leaf the rules leave whole."""
+        sh = self.cache.get(name)
+        if sh is None:
+            return {}
+        dims = by_dim(sh.mesh, sh.placements)
+        assert 0 not in dims, (name, sh.spec)
+        assert tuple(dims.get(1, ())) == tuple(self.rows), (
+            name, sh.spec, self.rows)
+        return {d: ax for d, ax in dims.items() if d >= 2}
+
+    def slots(self, name: str) -> tuple:
+        """The mesh dims that split a seq-indexed leaf's slots (dim 2).  A
+        leaf split along any other dim (its kv heads) is refused: the
+        decode reads every head of its slots."""
+        dims = self.cache_dims(name)
+        other = {d for d in dims if d != 2}
+        if other:
+            raise NotImplementedError(
+                f"{name}: cache split along dims {sorted(other)} "
+                f"({self.cache[name].spec}); the sharded decode splits "
+                "only the slots")
+        return tuple(dims.get(2, ()))
+
+    def slot_range(self, name: str, n_local: int) -> tuple:
+        """(first slot, slots of the whole leaf) of this rank's range of a
+        leaf holding ``n_local`` slots here."""
+        r, n = rank_index(self.mesh, self.slots(name))
+        return r * n_local, n * n_local
+
+    def local_shape(self, name: str, shape: tuple) -> tuple:
+        """This rank's shape of a leaf whose rows are already its own."""
+        sizes = mesh_shape(self.mesh)
+        out = list(shape)
+        for d, ax in self.cache_dims(name).items():
+            out[d] //= int(np.prod([sizes[a] for a in ax]))
+        return tuple(out)
+
+    def keep(self, name: str, val: torch.Tensor) -> torch.Tensor:
+        """This rank's part of one layer's whole value (the leaf without
+        its layers dim, this rank's rows)."""
+        for d, ax in self.cache_dims(name).items():
+            val = slice_over(val, self.mesh, ax, d - 1)
+        return val
+
+    def whole(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``keep``: all-gathers over the dims that split
+        the leaf (its rows stay this rank's)."""
+        for d, ax in self.cache_dims(name).items():
+            part = gather_over(part, self.mesh, ax, d - 1)
+        return part
 
 
 class set_activation_sharder:
     """Context manager installing the activation hook (none for a ``None``
     mesh)."""
 
-    def __init__(self, mesh, rows: tuple = ()):
-        self.sharder = (ActivationSharder(mesh, tuple(rows))
+    def __init__(self, mesh, rows: tuple = (), heads: tuple = (),
+                 cache: Optional[dict] = None):
+        self.sharder = (ActivationSharder(mesh, tuple(rows), tuple(heads),
+                                          dict(cache or {}))
                         if mesh is not None else None)
 
     def __enter__(self):
@@ -290,6 +395,13 @@ def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]):
 
 def current_sharder() -> Optional[ActivationSharder]:
     return _ACTIVE_SHARDER
+
+
+def serve_sharder() -> Optional[ActivationSharder]:
+    """The installed sharder when it lays out a cache (the sharded serve
+    steps), else None."""
+    sh = _ACTIVE_SHARDER
+    return sh if sh is not None and sh.cache else None
 
 
 def model_sharder() -> Optional[ActivationSharder]:

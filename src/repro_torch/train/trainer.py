@@ -25,7 +25,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Shard
 
 import numpy as np
 
@@ -36,11 +36,12 @@ from repro_torch.models.convert import master_params, module_params
 from repro_torch.models.layers import ShapeDtype
 from repro_torch.optim.adamw import AdamW, AdamWConfig, OptState
 from repro_torch.optim.schedule import cosine_with_warmup
-from repro_torch.parallel.collectives import (gather_over, mean_over,
-                                              rank_index, reduce_over,
-                                              slice_over, unshard)
-from repro_torch.parallel.sharding import (RULES_TRAIN,
-                                           set_activation_sharder)
+from repro_torch.parallel.collectives import (by_dim, gather_over,
+                                              mean_over, rank_index,
+                                              reduce_over, slice_over)
+from repro_torch.parallel.sharding import (RULES_TRAIN, batch_rows,
+                                           compute_weight,
+                                           set_activation_sharder, tp_dims)
 from repro_torch.utils.tree import map_with_paths
 
 
@@ -213,40 +214,9 @@ def _at(tree, path):
     return tree
 
 
-def _batch_rows(spec) -> tuple:
-    """The mesh dimensions a batch spec splits the rows over."""
-    if not spec or spec[0] is None:
-        return ()
-    return spec[0] if isinstance(spec[0], tuple) else (spec[0],)
-
-
 def _aux_coef(model) -> float:
     moe = getattr(model.cfg, "moe", None)
     return moe.router_aux_loss_coef if moe is not None else 0.0
-
-
-def _split_dims(sh) -> dict:
-    """{tensor dim: the mesh dims (in mesh order) that split it}."""
-    out: dict = {}
-    for a, p in zip(mesh_shape(sh.mesh), sh.placements):
-        if isinstance(p, Shard):
-            out.setdefault(p.dim, []).append(a)
-    return out
-
-
-def _tp_dims(model, shardings: Dict[str, object]) -> Dict[str, object]:
-    """{weight: the tensor dim whose 'model' slice the forward computes
-    with, or None: gathered whole}.  The forward slices
-    ``model.tp_leaves()`` (an ``EncDecLM`` none) where the rules split
-    exactly one dim over 'model' alone."""
-    tp_ok = getattr(model, "tp_leaves", set)()
-    return {k: _tp_dim(sh) if k in tp_ok else None
-            for k, sh in shardings.items()}
-
-
-def _tp_dim(sh) -> Optional[int]:
-    return next((d for d, ax in _split_dims(sh).items() if ax == ["model"]),
-                None)
 
 
 def _rows_loss_and_grads(model, params, batch, compute_dtype, mesh, rows):
@@ -311,19 +281,15 @@ def sharded_train_step(model, tcfg: TrainerConfig, mesh,
     names_all = list(sizes)
     coef = _aux_coef(model)
 
-    keeps = _tp_dims(model, shardings.params)
+    keeps = tp_dims(model, shardings.params)
 
     def compute_param(name, local):
-        sh = shardings.params[name]
-        keep = keeps[name]
-        gather = tuple(Replicate() if (a == "model" and keep is not None)
-                       else p for a, p in zip(names_all, sh.placements))
-        return unshard(local, mesh, gather)
+        return compute_weight(local, shardings.params[name], keeps[name])
 
     def storage_grad(name, g):
         sh = shardings.params[name]
         keep = keeps[name]
-        for d, ax in _split_dims(sh).items():
+        for d, ax in by_dim(mesh, sh.placements).items():
             if d != keep:
                 g = slice_over(g, mesh, ax, d)
         return g.contiguous()
@@ -339,7 +305,7 @@ def sharded_train_step(model, tcfg: TrainerConfig, mesh,
 
     def train_step(state: TrainState, batch: dict):
         B = int(next(iter(batch.values())).shape[0])
-        rows = _batch_rows(RULES_TRAIN.spec_for(("batch",), (B,), mesh))
+        rows = batch_rows(RULES_TRAIN, mesh, B)
         local = shard_batch(batch, mesh, RULES_TRAIN, model.device)
         params = {k: compute_param(k, v) for k, v in state.params.items()}
         if mb > 1:
@@ -413,7 +379,7 @@ def make_train_step_compressed(model, tcfg: TrainerConfig,
     compute_dtype = getattr(torch, tcfg.compute_dtype)
     n_pods = sizes["pod"]
     axes, shapes = model.logical_axes(), model.init_shapes()
-    tp = _tp_dims(model, {k: RULES_TRAIN.sharding_for(
+    tp = tp_dims(model, {k: RULES_TRAIN.sharding_for(
         axes[k], shapes[k].shape, mesh) for k in shapes})
 
     def train_step(state: TrainState, err: dict, batch: dict):

@@ -11,9 +11,10 @@ against the JAX package's (CPU).
   ``mamba2-2.7b`` records the same collectives (kind, bytes, group, in
   order) and the same ``FlopCounterMode`` total on ``meta`` as on real CPU
   tensors, and every ``torch.distributed`` call the step makes passed
-  through the record; ``plan_cell(llama3.2-1b, train_4k, single)``
-  completes with FLOPs and collectives, a decode cell with them null and
-  pending, both with the reference rules' argument bytes; and for every
+  through the record; ``plan_cell(llama3.2-1b, train_4k, single)`` and
+  its decode cell (``decode_32k``, the sharded decode step) complete with
+  FLOPs, collectives and output bytes, both with the reference rules'
+  argument bytes; and for every
   arch x shape x both meshes the per-rank argument bytes that
   ``cell_arguments`` places equal the sum of this rank's shard bytes that
   the reference's rules give (``spec_for`` on a shape-only mesh);
@@ -115,7 +116,7 @@ def test_meta_step_records_what_the_cpu_step_does(cases, arch):
         k == "all-gather" for k, _, _ in rec_cpu)
 
 
-def test_plan_cell_train_and_pending_serve(cases):
+def test_plan_cell_train_and_serve(cases):
     rec, dec = cases["plan"], cases["plan_decode"]
     assert rec["ok"] and rec["num_devices"] == 256
     assert rec["cost_analysis"]["flops"] > 0
@@ -126,8 +127,10 @@ def test_plan_cell_train_and_pending_serve(cases):
     for absent in ("temp_size_in_bytes", "generated_code_size_in_bytes"):
         assert absent not in rec["memory_analysis"]
     assert "bytes_accessed" not in rec["cost_analysis"]
-    assert dec["ok"] and dec["cost_analysis"] is None
-    assert dec["collectives"] is None and dec["pending"] == "ROADMAP item 19"
+    assert dec["ok"] and "pending" not in dec
+    assert dec["cost_analysis"]["flops"] > 0
+    assert dec["collectives"]["per_kind"]["all-gather"]["count"] > 0
+    assert dec["memory_analysis"]["output_size_in_bytes"] > 0
     for r, shape in ((rec, "train_4k"), (dec, "decode_32k")):
         assert r["memory_analysis"]["argument_size_in_bytes"] == _ref_bytes(
             "llama3.2-1b", shape, "single"), shape

@@ -8,8 +8,8 @@ generators, the training path (optimiser, schedule, trainer,
 checkpointer, synthetic data, tree utilities) and the ported configs
 and the multi-card modules (meshes, sharding rules and collectives,
 gradient compression, elastic training; the spawned ranks' test cases
-too), the launchers, the dry run and the examples import in a process
-where ``jax`` cannot load."""
+too), the launchers, the dry run, the sharded serve steps and the
+examples import in a process where ``jax`` cannot load."""
 import ast
 import pathlib
 import subprocess
@@ -22,7 +22,9 @@ EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_bench.py")) \
     + [ROOT / "tests" / "torch_multicard_cases.py",
-       ROOT / "tests" / "torch_dryrun_cases.py"] + EXAMPLES
+       ROOT / "tests" / "torch_dryrun_cases.py",
+       ROOT / "tests" / "torch_serve_cases.py",
+       ROOT / "tests" / "torch_dryrun_serve_cases.py"] + EXAMPLES
 BANNED = ("jax", "jaxlib", "repro", "benchmarks")
 
 
@@ -70,7 +72,7 @@ def test_serving_engine_imports_without_jax():
             "repro_torch.optim.grad_compress, repro_torch.train.elastic, "
             "repro_torch.launch.specs, repro_torch.launch.collective_bytes, "
             "repro_torch.launch.dryrun, repro_torch.launch.serve, "
-            "repro_torch.launch.train, "
+            "repro_torch.launch.train, repro_torch.serving.sharded, "
             + ", ".join(p.stem for p in EXAMPLES) + "; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,

@@ -749,6 +749,38 @@ def test_decode_attention_empty_rows_every_plan(gen, S, G, dtype):
                                atol=TOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G", [(32, 4), (32, 48), (4096, 4), (600, 48)])
+def test_decode_attention_lse_route(gen, S, G, dtype):
+    """K7's log-sum-exp route (``return_lse``), one launch counted under
+    ``decode_attention_lse``: out and lse against the plain version, with
+    one split (S = 32, one tile: the split pass writes lse) and several (the
+    merge writes it); kv_len 0 gives exact zeros and lse -inf; lse within
+    1e-5 relative (fp32 logits in both versions, natural log)."""
+    q, k, v, kv_len = _decode(gen, 4, S, 2 * G, 2, 128, dtype,
+                              (0, S, 1, S // 2 + 3))
+    n_split, _ = decode_plan(4, S, 2, G, 128, dtype == torch.bfloat16,
+                             torch.cuda.get_device_properties(
+                                 0).multi_processor_count)
+    assert (n_split == 1) == (S == 32), n_split
+    n0, n1 = LAUNCHES["decode_attention"], LAUNCHES["decode_attention_lse"]
+    out, lse = decode_attention(q, k, v, kv_len, return_lse=True)
+    assert (LAUNCHES["decode_attention"], LAUNCHES["decode_attention_lse"]) \
+        == (n0, n1 + 1)
+    ref, ref_lse = decode_attention(q, k, v, kv_len, impl="ref",
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:2]
+    assert int(torch.count_nonzero(out[0])) == 0
+    assert bool(torch.isneginf(lse[0]).all())
+    torch.testing.assert_close(out[1:].float(), ref[1:].float(),
+                               atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse[1:], ref_lse[1:], atol=1e-5, rtol=1e-5)
+    # the default call: the same output, no lse
+    torch.testing.assert_close(decode_attention(q, k, v, kv_len), out,
+                               atol=0, rtol=0)
+
+
 def test_attention_wrappers_reject_bad_inputs(gen):
     q, k, v = _flash(gen, 1, 8, 4, 2, 20, torch.float32)
     with pytest.raises(ValueError):                # head_dim % 8 != 0
