@@ -21,7 +21,8 @@ import torch
 
 
 def content_hash(obj: Any) -> str:
-    """Stable hash of token arrays / bytes / str / tuples thereof."""
+    """Stable hash of token arrays / tensors / bytes / str / tuples
+    thereof: the reference's digest for the same values."""
     h = hashlib.sha256()
 
     def feed(o):
@@ -36,12 +37,32 @@ def content_hash(obj: Any) -> str:
             for e in o:
                 feed(e)
         else:
-            arr = np.asarray(o)
-            h.update(b"a"); h.update(str(arr.dtype).encode())
-            h.update(str(arr.shape).encode()); h.update(arr.tobytes())
+            dtype, shape, raw = _array_parts(o)
+            h.update(b"a"); h.update(dtype.encode())
+            h.update(shape.encode()); h.update(raw)
 
     feed(obj)
     return h.hexdigest()
+
+
+# float types numpy has; torch's others (bfloat16, the float8 types) keep
+# their torch name, which is also ml_dtypes' (the reference's numpy name)
+_NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
+
+
+def _array_parts(o: Any) -> Tuple[str, str, bytes]:
+    """(dtype name, shape as a tuple's text, raw bytes) of an array or a
+    tensor, as numpy names them.  A tensor of any dtype, device or grad
+    state is copied to the host, detached; a dtype numpy lacks gives its
+    bytes under torch's name."""
+    if isinstance(o, torch.Tensor):
+        t = o.detach().cpu().contiguous()
+        if t.is_floating_point() and t.dtype not in _NUMPY_FLOATS:
+            raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+            return str(t.dtype).split(".")[-1], str(tuple(t.shape)), raw
+        o = t.numpy()
+    arr = np.asarray(o)
+    return str(arr.dtype), str(arr.shape), arr.tobytes()
 
 
 def _nbytes(tree: Any) -> int:
