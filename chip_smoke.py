@@ -268,6 +268,7 @@ def main() -> None:
     print(f"model: built {cfg.name} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    hold_param_count(cfg, model, "model")
     launches, serve = phase_serve(torch, model)
     lap("serve")
     fed_launches, fed_eng, fed_prompts, k6_path = phase_federated(torch,
@@ -1924,7 +1925,21 @@ def build_full(torch, name, label, **cut):
           f"{cfg.head_dim}, {cfg.dtype}"
           + (f", moe_impl {model.moe_impl}" if cfg.moe else "")
           + f") in {time.perf_counter() - t0:.1f} s", flush=True)
+    hold_param_count(cfg, model, label)
     return model
+
+
+def hold_param_count(cfg, model, label):
+    """``cfg.param_count()`` (the model rebuilt on the ``meta`` device)
+    against the parameters of ``model``, built on the card; raises if they
+    differ."""
+    counted = cfg.param_count()
+    built = sum(p.numel() for p in model.parameters())
+    print(f"{label}: param_count() {counted}, built on the card {built}",
+          flush=True)
+    if counted != built:
+        raise AssertionError(f"{cfg.name}: param_count() {counted} != "
+                             f"{built} parameters built")
 
 
 SIM_KERNELS = ("similarity_topk_batched", "similarity_lookup",

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Optional, Tuple
 
 
@@ -154,6 +155,17 @@ class ModelConfig:
         if i < m.first_dense_layers:
             return False
         return (i - m.expert_layer_offset) % m.expert_layer_period == 0
+
+    def param_count(self) -> int:
+        """Exact parameter count: the port's model built on the ``meta``
+        device (nothing allocated, so any width is cheap), counted over
+        ``init_shapes``, the reference's flat layout (tied embeddings
+        without a head, whisper's full decoder position table)."""
+        from repro_torch.models.registry import build_model  # no cycle
+
+        model = build_model(self, device="meta")
+        return int(sum(math.prod(s.shape)
+                       for s in model.init_shapes().values()))
 
     def active_param_count_ratio(self) -> float:
         """active/total ratio for MoE archs (used for MODEL_FLOPS = 6*N_active*D)."""

@@ -189,6 +189,11 @@ class EncDecLM(nn.Module):
         reference's ``logical_axes``."""
         return L.leaf_layout(self, self._axes_of)[0]
 
+    def param_specs(self) -> Dict[str, L.ParamSpec]:
+        """{reference name: ``ParamSpec``} of every weight, repeats
+        stacked, as the reference's ``param_specs``."""
+        return L.param_specs(self, self._axes_of)
+
     def init_shapes(self) -> Dict[str, L.ShapeDtype]:
         """{reference name: ``ShapeDtype``}, as the reference's
         ``init_shapes``."""

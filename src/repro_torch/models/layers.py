@@ -24,6 +24,7 @@ reference, which computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -78,6 +79,27 @@ def leaf_layout(model, axes_of) -> tuple:
             shape, axes[name] = (reps[name],) + shape, ("layers",) + axes[name]
         shapes[name] = ShapeDtype(shape, dtype)
     return axes, shapes
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """A weight's declaration, as the reference's ``ParamSpec``: its shape,
+    logical axes, initializer (``normal`` | ``zeros`` | ``ones`` |
+    ``small_normal``) and dtype (None: the model's)."""
+    shape: tuple
+    axes: tuple
+    init: str = "normal"
+    dtype: Optional[str] = None
+
+
+def param_specs(model, axes_of) -> dict:
+    """{reference name: ``ParamSpec``} of every weight of ``model``, from
+    ``leaf_layout`` and the initializers of ``model.leaves()``; every
+    weight has the model's dtype, as in the reference."""
+    axes, shapes = leaf_layout(model, axes_of)
+    inits = {name: init for name, _, _, _, init in model.leaves()}
+    return {name: ParamSpec(s.shape, axes[name], inits[name])
+            for name, s in shapes.items()}
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -102,6 +102,19 @@ def similarity_bytes(n_queries: int, n_keys: int, dim: int,
             + meta_rows * 2 * 4.0 * 2)       # last_used+freq, read+write
 
 
+def attention_bytes(kv_len, *, page_size: int, max_len: int, kv_heads: int,
+                    head_dim: int, dtype_bytes: int, impl: str) -> float:
+    """The paged-attention byte model (``impl`` ``gather`` | ``paged``, the
+    reference's names), re-exported so profile callers need one import;
+    imported at call time, as in the reference, to keep the kernels and
+    obs modules out of an import cycle."""
+    from repro_torch.kernels.paged_attention import (
+        attention_kv_bytes_per_step)
+    return attention_kv_bytes_per_step(
+        kv_len, page_size=page_size, max_len=max_len, kv_heads=kv_heads,
+        head_dim=head_dim, dtype_bytes=dtype_bytes, impl=impl)
+
+
 def decode_attention_bytes(batch: int, seq: int, kv_heads: int,
                            head_dim: int, dtype_bytes: int) -> float:
     """Modeled k+v read of one dense flash-decode dispatch: every row

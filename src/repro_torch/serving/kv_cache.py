@@ -336,6 +336,12 @@ class PagedKVCache:
     # ------------------------------------------------------------------
     # dispatch views
     # ------------------------------------------------------------------
+    def table_rows(self, slots: List[int]) -> np.ndarray:
+        """(len(slots), pages_per_slot) block-table rows for a dispatch: a
+        copy, int32 ``np.ndarray`` as the reference's (the table lives on
+        the host here too)."""
+        return self.block_table[np.asarray(slots, np.int32)].copy()
+
     def decode_table(self, row_active: np.ndarray) -> np.ndarray:
         """(B, pages_per_slot) table for the batched decode: inactive rows
         are masked INVALID so their junk decode write drops."""
