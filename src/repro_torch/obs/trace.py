@@ -6,7 +6,11 @@ Two tracks, one timeline (microseconds since the tracer's epoch):
   pipeline, emitted as matched ``B``/``E`` duration events that nest on
   the engine tid — ``step`` > { ``schedule`` > [``descriptor``,
   ``lookup`` > per-rung ``probe:local|peer|remote|cloud``],
-  ``admit`` > [``prefill``, ``prefill_chunk``], ``decode``, ``retire`` } —
+  ``admit`` > [``prefill``, ``prefill_chunk``], ``decode``, ``retire`` },
+  where each model launch (``prefill``, ``prefill_chunk``, ``decode``)
+  holds its phases ``pack`` (inputs built and uploaded), ``forward`` (the
+  model call, which returns once its kernels are issued) and ``sample``
+  (the argmax copied to the host: the wait for the device) —
   plus a ``request:<rid>`` span (category ``request``) inside the step
   that served/retired the request, carrying tier + completion args.
 

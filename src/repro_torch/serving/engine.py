@@ -31,7 +31,11 @@ Request lifecycle (one lookup ladder per engine STEP, not per request):
 The model runs eagerly: where the reference jitted its prefill and decode
 with donated caches, the port calls the model, which writes the cache in
 place; ``engine/dispatches/*`` still counts one per call, so the per-step
-ladder bound (``max_step_ladder <= 2``) stays checkable.
+ladder bound (``max_step_ladder <= 2``) stays checkable.  Port-only
+observability: under a tracer each model launch's span holds ``pack``,
+``forward`` and ``sample`` spans, and every launch, traced or not, feeds
+``engine/fill/{descriptor,prefill,decode}/{tokens,slots}``: the real
+tokens and the padded slots of the shape the model ran.
 
 The port serves both cache layouts behind any CoIC org: a cooperative
 cluster of one or more nodes, or a cross-cluster federation, with an
@@ -226,6 +230,11 @@ class ServingEngine:
         self._completed = self.metrics.counter("engine/completed")
         self._hits = LazyCounterGroup(self.metrics, "engine/hits")
         self._decode_ms = self.metrics.histogram("engine/decode_ms")
+        # per launch: the real tokens, and the slots of the padded shape
+        # the model ran (useful share = sum tokens / sum slots)
+        self._fill = {k: (self.metrics.histogram(f"engine/fill/{k}/tokens"),
+                          self.metrics.histogram(f"engine/fill/{k}/slots"))
+                      for k in ("descriptor", "prefill", "decode")}
         self._last_step_ladder = self.metrics.gauge("engine/last_step_ladder")
         self._max_step_ladder = self.metrics.gauge("engine/max_step_ladder")
 
@@ -461,6 +470,11 @@ class ServingEngine:
                                 completion_ms=completion_ms,
                                 args={"deadline_miss": missed})
 
+    def _observe_fill(self, kind: str, tokens: int, slots: int) -> None:
+        tok_h, slot_h = self._fill[kind]
+        tok_h.observe(tokens)
+        slot_h.observe(slots)
+
     # ------------------------------------------------------------------
     def _pad_prompts(self, prompts: List[np.ndarray], fill: int,
                      exact: bool = False):
@@ -482,7 +496,8 @@ class ServingEngine:
     def _extract_descriptors(self, prompts: List[np.ndarray]):
         """ONE descriptor extraction over the length-bucketed pad.
         Returns (n, D) numpy descriptors and the wall ms of the call."""
-        toks, _ = self._pad_prompts(prompts, fill=-1)
+        toks, lens = self._pad_prompts(prompts, fill=-1)
+        self._observe_fill("descriptor", int(lens.sum()), toks.size)
         tr = self.trace
         if tr.enabled:
             tr.begin("descriptor", cat="engine",
@@ -644,24 +659,34 @@ class ServingEngine:
         if tr.enabled:
             tr.begin("prefill", cat="engine",
                      args={"rows": m, "bucket": int(toks.shape[1])})
+            tr.begin("pack", cat="engine")
         dev = self.device
-        logits, many_cache, _ = self.model.prefill(
-            torch.as_tensor(toks, device=dev), max_len=self.cfg.max_len,
-            lengths=torch.as_tensor(lens_pad, device=dev))
+        toks_t = torch.as_tensor(toks, device=dev)
+        lens_t = torch.as_tensor(lens_pad, device=dev)
         if tr.enabled:
+            tr.end()
+            tr.begin("forward", cat="engine")
+        logits, many_cache, _ = self.model.prefill(
+            toks_t, max_len=self.cfg.max_len, lengths=lens_t)
+        if tr.enabled:
+            tr.end()
+            tr.begin("sample", cat="engine")
+        nxt_t = torch.argmax(logits[:m], -1).to(torch.int32)
+        nxt = nxt_t.cpu().numpy()              # waits for the device
+        if tr.enabled:
+            tr.end()
             tr.end()
         self.dispatches["prefill"] += 1
         self.prefill_tokens_computed += int(lens.sum())
+        self._observe_fill("prefill", int(lens.sum()), toks.size)
         slots = [self.free_slots.pop() for _ in range(m)]
         batch_cache_scatter(self.cache,
                             {k: v[:, :m] for k, v in many_cache.items()},
                             slots)
         del many_cache
-        nxt_t = torch.argmax(logits[:m], -1).to(torch.int32)
         idx = torch.as_tensor(slots, device=dev)
         self.lengths[idx] = torch.as_tensor(lens, device=dev)
         self.tokens[idx] = nxt_t
-        nxt = nxt_t.cpu().numpy()
         now = time.perf_counter()
         for i, ((rid, prompt), slot) in enumerate(zip(taken, slots)):
             self.row_active[slot] = True
@@ -696,28 +721,43 @@ class ServingEngine:
         activate the row."""
         C = self.cfg.prefill_chunk
         n = min(C, len(st.prompt) - st.filled)
-        chunk = np.zeros((1, C), np.int32)
-        chunk[0, :n] = st.prompt[st.filled:st.filled + n]
         tr = self.trace
         if tr.enabled:
             tr.begin("prefill_chunk", cat="engine",
                      args={"rid": st.req_id, "width": n})
+            tr.begin("pack", cat="engine")
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :n] = st.prompt[st.filled:st.filled + n]
         dev = self.device
+        chunk_t = torch.as_tensor(chunk, device=dev)
+        start_t = torch.tensor([st.filled], dtype=torch.int32, device=dev)
+        width_t = torch.tensor([n], dtype=torch.int32, device=dev)
+        if tr.enabled:
+            tr.end()
+            tr.begin("forward", cat="engine")
         logits, st.cache, _ = self.model.prefill_chunk(
-            torch.as_tensor(chunk, device=dev), st.cache,
-            torch.tensor([st.filled], dtype=torch.int32, device=dev),
-            torch.tensor([n], dtype=torch.int32, device=dev))
+            chunk_t, st.cache, start_t, width_t)
+        if tr.enabled:
+            tr.end()
+        last = st.filled + n >= len(st.prompt)
+        if last:
+            # only the last chunk's token is read (and waited for)
+            if tr.enabled:
+                tr.begin("sample", cat="engine")
+            nxt = int(torch.argmax(logits[0]))
+            if tr.enabled:
+                tr.end()
         if tr.enabled:
             tr.end()
         self.dispatches["prefill_chunk"] += 1
         self.prefill_tokens_computed += n
+        self._observe_fill("prefill", n, C)
         st.filled += n
-        if st.filled < len(st.prompt):
+        if not last:
             return
         rid, slot = st.req_id, st.slot
         del self.chunking[rid]
         batch_cache_scatter(self.cache, st.cache, [slot])
-        nxt = int(torch.argmax(logits[0]))
         self.lengths[slot] = len(st.prompt)
         self.tokens[slot] = nxt
         self.row_active[slot] = True
@@ -762,6 +802,11 @@ class ServingEngine:
                      key=lambda st: self._queue_key((st.req_id,)))
         C = self._chunk_width
         Bb = _pow2(len(sts))
+        tr = self.trace
+        if tr.enabled:
+            tr.begin("prefill_chunk", cat="engine",
+                     args={"rows": len(sts), "width": C})
+            tr.begin("pack", cat="engine")
         toks = np.zeros((Bb, C), np.int32)
         lens = np.zeros((Bb,), np.int32)
         widths = np.zeros((Bb,), np.int32)
@@ -773,22 +818,25 @@ class ServingEngine:
             lens[i] = st.filled
             widths[i] = n
             bt[i] = self.kv.block_table[st.slot]
-        tr = self.trace
-        if tr.enabled:
-            tr.begin("prefill_chunk", cat="engine",
-                     args={"rows": len(sts), "width": C})
         dev = self.device
+        toks_t, lens_t, widths_t, bt_t = (
+            torch.as_tensor(a, device=dev) for a in (toks, lens, widths, bt))
+        if tr.enabled:
+            tr.end()
+            tr.begin("forward", cat="engine")
         logits, self.cache, _ = self.model.prefill_chunk(
-            torch.as_tensor(toks, device=dev), self.cache,
-            torch.as_tensor(lens, device=dev),
-            torch.as_tensor(widths, device=dev),
-            block_table=torch.as_tensor(bt, device=dev),
+            toks_t, self.cache, lens_t, widths_t, block_table=bt_t,
             attn_impl=self._attn_impl)
         if tr.enabled:
             tr.end()
+            tr.begin("sample", cat="engine")
+        nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        if tr.enabled:
+            tr.end()
+            tr.end()
         self.dispatches["prefill_chunk"] += 1
         self.prefill_tokens_computed += int(widths.sum())
-        nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        self._observe_fill("prefill", int(widths.sum()), toks.size)
         now = time.perf_counter()
         for i, st in enumerate(sts):
             st.filled += int(widths[i])
@@ -892,21 +940,35 @@ class ServingEngine:
         if self._paged:
             # mid-prefill and free rows ride the batched decode with an
             # all-INVALID table row: their junk write drops
+            if tr.enabled:
+                tr.begin("pack", cat="engine")
             bt = torch.as_tensor(self.kv.decode_table(self.row_active),
                                  device=self.device)
+            if tr.enabled:
+                tr.end()
+                tr.begin("forward", cat="engine")
             logits, self.cache, self.lengths = self.model.decode_step(
                 self.cache, self.tokens, self.lengths, block_table=bt,
                 attn_impl=self._attn_impl)
         else:
             # free rows write junk into their own slots, which the next
             # admission's scatter overwrites whole
+            if tr.enabled:
+                tr.begin("forward", cat="engine")
             logits, self.cache, self.lengths = self.model.decode_step(
                 self.cache, self.tokens, self.lengths)
         self.dispatches["decode"] += 1
+        if tr.enabled:
+            tr.end()
+            tr.begin("sample", cat="engine")
         nxt_t = torch.argmax(logits, -1).to(torch.int32)
         nxt = nxt_t.cpu().numpy()
         lengths = self.lengths.cpu().numpy()
+        if tr.enabled:
+            tr.end()
         self._decode_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._observe_fill("decode", int(self.row_active.sum()),
+                           self.cfg.max_batch)
         if tr.enabled:
             tr.end()
         for slot in list(self.active):

@@ -167,17 +167,29 @@ def _export(tracer, path):
     return json.loads(path.read_text())
 
 
+# the port's launch phases: spans the reference does not emit
+PHASES = ("pack", "forward", "sample")
+
+
 def test_engine_trace_validates_and_matches_jax(obs_runs, tmp_path):
     """Both traces pass ``validate`` with the same span counts and request
-    count; each request's modeled span (and the sum of its term spans) is
-    its ``completion_ms``, and the port's tiers and terms equal the
-    reference's."""
+    count on every span name of the reference's, and the port's only other
+    spans are the launch phases, one of each per paged ``decode`` and
+    ``prefill_chunk`` launch; each request's modeled span (and the sum of
+    its term spans) is its ``completion_ms``, and the port's tiers and
+    terms equal the reference's."""
     (je, jtr, _), (te, ttr, _) = obs_runs
     jtrace = _export(jtr, tmp_path / "jax.json")
     ttrace = _export(ttr, tmp_path / "torch.json")
-    stats = validate(ttrace)
-    assert stats == validate(jtrace)
-    assert stats["requests"] == N_REQUESTS
+    stats, jstats = validate(ttrace), validate(jtrace)
+    spans, jspans = stats["spans"], jstats["spans"]
+    assert {k: spans.get(k) for k in jspans} == jspans
+    launches = jspans["decode"] + jspans["prefill_chunk"]
+    assert "prefill" not in jspans and not set(PHASES) & set(jspans)
+    assert {k: v for k, v in spans.items() if k not in jspans} == \
+        {k: launches for k in PHASES}
+    assert stats["events"] == jstats["events"] + 2 * len(PHASES) * launches
+    assert stats["requests"] == jstats["requests"] == N_REQUESTS
     for name in ("step", "schedule", "admit", "descriptor", "lookup"):
         assert stats["spans"].get(name, 0) > 0, name
 
@@ -207,17 +219,34 @@ def test_engine_trace_validates_and_matches_jax(obs_runs, tmp_path):
             [t["dur"] for t in j_terms[rid]], abs=1e-3), rid
 
 
+# the port's pad-fill histograms: metrics the reference does not keep
+FILLS = {f"engine/fill/{k}/{q}" for k in ("descriptor", "prefill", "decode")
+         for q in ("tokens", "slots")}
+
+
 def test_engine_registry_matches_jax(obs_runs):
-    """The registry snapshots hold the same metric names; every counter
-    and gauge (the dispatch bounds, hits, deadlines, KV and ladder counts)
-    is equal, and ``check_metrics`` accepts the port's."""
+    """The registry snapshots hold the same metric names but for the
+    port's six pad-fill histograms; every counter and gauge (the dispatch
+    bounds, hits, deadlines, KV and ladder counts) is equal, and
+    ``check_metrics`` accepts the port's."""
     (_, _, jm), (_, _, tm) = obs_runs
     jsnap, tsnap = jm.snapshot(), tm.snapshot()
     check_metrics(tsnap)
-    assert set(tsnap) == set(jsnap)
+    assert set(tsnap) - set(jsnap) == FILLS
+    assert set(jsnap) <= set(tsnap)
     for name, v in jsnap.items():
         if not isinstance(v, dict):           # histograms hold wall times
             assert tsnap[name] == v, name
+    # one observation per launch, counted as the reference counts them
+    n = {k: jsnap[f"engine/dispatches/{k}"]
+         for k in ("descriptor", "prefill", "prefill_chunk", "decode")}
+    launches = {"descriptor": n["descriptor"],
+                "prefill": n["prefill"] + n["prefill_chunk"],
+                "decode": n["decode"]}
+    assert {name: tsnap[name]["count"] for name in FILLS} == \
+        {name: launches[name.split("/")[2]] for name in FILLS}
+    assert tsnap["engine/fill/prefill/tokens"]["sum"] == \
+        jsnap["engine/prefill_tokens_computed"]
 
 
 def test_ring_truncated_engine_trace_validates(obs_twin, tmp_path):
