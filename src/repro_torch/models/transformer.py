@@ -77,7 +77,10 @@ Where JAX returned a new cache, ``prefill_chunk`` and ``decode_step``
 write the caller's leaves IN PLACE and hand the same dict back.  JAX
 drops out-of-bounds scatters (the INVALID page sink, pad tokens);
 PyTorch raises, so each dispatch computes its kept write targets once
-(one host sync) and writes only those.  JAX clamps out-of-bounds
+(one host sync) and writes only those.  A packed chunk (a
+``PackedChunk`` given to ``prefill_chunk``: the rows' chunk tokens in one
+sequence, with no pad token) brings each token's page from the host and
+drops nothing.  JAX clamps out-of-bounds
 gathers; the gathered view (``paged_gather_view``) clamps INVALID
 entries to page P - 1 explicitly.
 """
@@ -89,6 +92,7 @@ import math
 import types
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -108,6 +112,80 @@ from repro_torch.parallel.sharding import (constrain, model_sharder,
                                            serve_sharder)
 
 INVALID_PAGE = 2 ** 30
+
+
+@dataclasses.dataclass
+class PackedChunk:
+    """One packed chunk launch (``pack_chunks``): the chunk tokens of
+    ``rows`` rows concatenated into one (1, T) sequence, T the sum of
+    their widths, with the indices every layer reads.  The dense layers
+    run over the T tokens; the paged attention reads the queries through
+    a (rows, width) view, ``width`` the widest row's, in which ``slot``
+    (T,) places each token (None when every row is ``width`` wide: the
+    view is the sequence itself)."""
+    tokens: torch.Tensor         # (1, T) int64
+    positions: torch.Tensor      # (1, T) int64, absolute
+    pages: torch.Tensor          # (T,) int64 physical page of each token
+    offsets: torch.Tensor        # (T,) int64 its offset in that page
+    last: torch.Tensor           # (rows,) int64 each row's last token
+    slot: Optional[torch.Tensor]  # (T,) int64 or None
+    lengths: torch.Tensor        # (rows,) int32 fill before the launch
+    block_table: torch.Tensor    # (rows, n_pages) int32
+    width: int
+    _view: Optional[torch.Tensor] = None   # the view's buffer; pads stay 0
+
+    def to_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """(1, T, ...) -> (rows, width, ...): one index write."""
+        rows, tail = self.lengths.shape[0], tuple(t.shape[2:])
+        if self.slot is None:
+            return t.view((rows, self.width) + tail)
+        if self._view is None:
+            self._view = t.new_zeros((rows * self.width,) + tail)
+        self._view.index_copy_(0, self.slot, t[0])
+        return self._view.view((rows, self.width) + tail)
+
+    def to_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """(rows, width, ...) -> (1, T, ...): one gather."""
+        if self.slot is None:
+            return t.reshape((1, -1) + tuple(t.shape[2:]))
+        return t.flatten(0, 1).index_select(0, self.slot)[None]
+
+
+def pack_chunks(chunks, lengths, block_table: np.ndarray, page: int,
+                device) -> PackedChunk:
+    """Build a ``PackedChunk`` on the host and upload it (two copies).
+    ``chunks``: each row's chunk tokens (at least one); ``lengths``: each
+    row's fill before them (the chunk occupies positions lengths..lengths
+    + width - 1); ``block_table`` (rows, n_pages) int32 host rows; every
+    chunk token's page must be mapped."""
+    widths = np.array([len(c) for c in chunks], np.int64)
+    rows, width = len(chunks), int(widths.max())
+    cu = np.zeros(rows + 1, np.int64)
+    np.cumsum(widths, out=cu[1:])
+    T = int(cu[-1])
+    row = np.repeat(np.arange(rows), widths)
+    within = np.arange(T) - cu[row]
+    lengths = np.asarray(lengths, np.int64)
+    pos = lengths[row] + within
+    pages = block_table[row, pos // page].astype(np.int64)
+    if (pages >= INVALID_PAGE).any():
+        raise ValueError("a chunk token's page is not mapped")
+    ragged = T < rows * width
+    parts = [np.concatenate(chunks), pos, pages, pos % page, cu[1:] - 1]
+    if ragged:
+        parts.append(row * width + within)
+    idx = torch.as_tensor(np.concatenate(parts).astype(np.int64),
+                          device=device)
+    meta = torch.as_tensor(np.concatenate(
+        [lengths, block_table.reshape(-1)]).astype(np.int32), device=device)
+    tokens, positions, pages_t, offsets, last = idx[:4 * T + rows].split(
+        (T, T, T, T, rows))
+    return PackedChunk(
+        tokens=tokens[None], positions=positions[None], pages=pages_t,
+        offsets=offsets, last=last,
+        slot=idx[4 * T + rows:] if ragged else None,
+        lengths=meta[:rows], block_table=meta[rows:].view(rows, -1),
+        width=width)
 
 # ---------------------------------------------------------------------------
 # Layer plan
@@ -412,6 +490,12 @@ class DecoderLM(nn.Module):
         self.layers = nn.ModuleList(blocks)
         self._recurrent = any(sl.kind == "ssm" for seg in self.plan
                               for sl in seg.pattern)
+        # a packed chunk (``PackedChunk``) needs per-token layers: GQA
+        # attention, and MLPs whose result does not depend on the launch's
+        # other tokens (a dropless MoE's capacity does)
+        self._per_token = cfg.mla is None and all(
+            b.kind == "attn" and (b.mlp != "moe" or self.moe_impl == "dense")
+            for b in blocks)
 
     # ------------------------------------------------------------------
     def leaves(self):
@@ -875,9 +959,10 @@ class DecoderLM(nn.Module):
     @staticmethod
     def _scatter(leaf, vals, targets):
         """Write chunk values (B, C, ...) into one layer's leaf in place at
-        the kept ``targets``."""
+        the kept ``targets`` (every one when ``sel`` is None)."""
         sel, ia, ib = targets
-        leaf[ia, ib] = vals.reshape((-1,) + tuple(vals.shape[2:]))[sel]
+        vals = vals.reshape((-1,) + tuple(vals.shape[2:]))
+        leaf[ia, ib] = vals if sel is None else vals[sel]
 
     def _attend(self, q, ck, cv, positions, lengths, block_table, attn_impl):
         """Attention of chunk queries ``q`` (B, C, H, Dh) at ``positions``
@@ -919,13 +1004,22 @@ class DecoderLM(nn.Module):
         return L.mla_attention(cfg, blk, h, ckv, krope, positions, mask=mask)
 
     def _cached_layers(self, x, positions, lengths, cache, valid,
-                       block_table, attn_impl, decode=False):
+                       block_table, attn_impl, decode=False, pack=None):
         """Every layer of a prefill chunk / paged decode step: project,
         write the new k/v (latent) into the cache in place, attend over
         the cache; an SSM layer continues from its cached states (one
-        recurrence step when ``decode``)."""
+        recurrence step when ``decode``).  A packed chunk (``pack``)
+        writes each token at its own page and attends through the
+        (rows, width) query view."""
         cfg = self.cfg
-        targets = self._write_targets(cache, positions, valid, block_table)
+        if pack is None:
+            targets = self._write_targets(cache, positions, valid,
+                                          block_table)
+            qpos = positions
+        else:                       # every token is real: nothing drops
+            targets = (None, pack.pages, pack.offsets)
+            qpos = lengths.long()[:, None] + torch.arange(pack.width,
+                                                          device=x.device)
         for i, blk in enumerate(self.layers):
             # reference: transformer.py:768 (prefill_chunk's body; its paged
             # decode_step shares this loop)
@@ -943,8 +1037,12 @@ class DecoderLM(nn.Module):
                 q, k, v = L.attention_qkv(cfg, blk, h, positions)
                 self._scatter(leaves[0], k, targets)          # in place
                 self._scatter(leaves[1], v, targets)
-                y = L.attention_out(blk, self._attend(
-                    q, *leaves, positions, lengths, block_table, attn_impl))
+                if pack is not None:
+                    q = pack.to_rows(q)
+                a = self._attend(q, *leaves, qpos, lengths, block_table,
+                                 attn_impl)
+                y = L.attention_out(blk, a if pack is None
+                                    else pack.to_tokens(a))
             x, _ = self._mlp(blk, x + y)
         return x
 
@@ -975,8 +1073,8 @@ class DecoderLM(nn.Module):
         return y
 
     @torch.no_grad()
-    def prefill_chunk(self, tokens: torch.Tensor, cache: dict,
-                      lengths: torch.Tensor,
+    def prefill_chunk(self, tokens, cache: dict,
+                      lengths: Optional[torch.Tensor] = None,
                       widths: Optional[torch.Tensor] = None, *,
                       block_table: Optional[torch.Tensor] = None,
                       attn_impl: str = "gather"):
@@ -993,7 +1091,19 @@ class DecoderLM(nn.Module):
         logits (B, V), cache — the same dict, written in place —, new
         lengths).  Sliding-window ring caches raise, as in the reference,
         and so do recurrent (SSM) layers given a block table or a pad
-        mask: their state would absorb the pads."""
+        mask: their state would absorb the pads.
+
+        ``tokens`` may instead be a ``PackedChunk`` (``pack_chunks``): the
+        chunk tokens of several paged rows in one sequence, with no pad,
+        carrying its own lengths and block table, for a model whose layers
+        are all per-token (``packs_chunks``).  The logits are then each
+        row's last token's, (rows, V)."""
+        if isinstance(tokens, PackedChunk):
+            if not (lengths is None and widths is None
+                    and block_table is None):
+                raise ValueError("a PackedChunk carries its own lengths "
+                                 "and block table")
+            return self._prefill_packed(tokens, cache, attn_impl)
         if self.cfg.sliding_window > 0:
             raise NotImplementedError("chunked prefill with SWA ring caches")
         if self._recurrent and block_table is not None:
@@ -1018,6 +1128,27 @@ class DecoderLM(nn.Module):
         last = (widths.long() - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=dev), last][:, None]
         return self.unembed(x_last)[:, 0], cache, lengths + widths
+
+    def packs_chunks(self) -> bool:
+        """Whether ``prefill_chunk`` takes a ``PackedChunk`` here: every
+        layer per-token (GQA attention, a dense MLP or a dense-dispatch
+        MoE) and no serve sharder installed."""
+        return self._per_token and serve_sharder() is None
+
+    def _prefill_packed(self, pack: PackedChunk, cache: dict,
+                        attn_impl: str):
+        """``prefill_chunk`` over packed rows: the same positions, page
+        writes and last-token logits as the padded launch, with the dense
+        layers run over the T real tokens only."""
+        if not self.packs_chunks():
+            raise ValueError("packed chunks need per-token layers (GQA, "
+                             "no dropless MoE) and no serve sharder")
+        x = self.embed(pack.tokens)
+        x = self._cached_layers(x, pack.positions, pack.lengths, cache, None,
+                                pack.block_table, attn_impl, pack=pack)
+        logits = self.unembed(x[:, pack.last])[0]
+        return logits, cache, (pack.positions[0, pack.last] + 1).to(
+            torch.int32)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,

@@ -21,7 +21,10 @@ Request lifecycle (one lookup ladder per engine STEP, not per request):
                only).  Paged cache (``kv_page > 0``): every queued request
                with a free slot maps its index-resident prompt-prefix pages
                (cross-user KV sharing) and joins the chunking set; ONE
-               batched ``prefill_chunk`` call advances every mid-prefill row
+               ``prefill_chunk`` launch advances every mid-prefill row (a
+               model of per-token layers packs the rows' real tokens into
+               one sequence, ``pack_chunks``; any other pads them to (pow2
+               rows, chunk width))
     decode   — one ``decode_step`` over the whole batch; in the paged pool
                idle and mid-prefill rows ride it with an all-INVALID table
                row
@@ -66,6 +69,7 @@ from repro_torch.core.tiers import (TIER_LOCAL, TIER_MISS, TIER_NAMES,
                                     TIER_PEER, TIER_REMOTE, pow2 as _pow2,
                                     route_flat)
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import pack_chunks
 from repro_torch.obs.metrics import CounterDict, LazyCounterGroup, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.obs.views import digest_block, ladder_block, org_stats
@@ -230,6 +234,9 @@ class ServingEngine:
         self._completed = self.metrics.counter("engine/completed")
         self._hits = LazyCounterGroup(self.metrics, "engine/hits")
         self._decode_ms = self.metrics.histogram("engine/decode_ms")
+        # paged chunk launches that took the packed layout
+        self._chunks_packed = self.metrics.counter(
+            "engine/prefill_chunk_packed")
         # per launch: the real tokens, and the slots of the padded shape
         # the model ran (useful share = sum tokens / sum slots)
         self._fill = {k: (self.metrics.histogram(f"engine/fill/{k}/tokens"),
@@ -791,42 +798,65 @@ class ServingEngine:
             self._advance_chunks_paged()
 
     def _advance_chunks_paged(self) -> None:
-        """ONE (pow2 rows, chunk_width) ``prefill_chunk`` call over every
-        mid-prefill row: per-row lengths, true widths and block-table rows;
-        pad rows carry width 0 and an all-INVALID table, so their writes
-        drop.  Rows whose last chunk lands activate for decode and publish
-        their computed full pages to the prefix index."""
+        """ONE chunk launch over every mid-prefill row, each advancing
+        min(chunk_width, its remaining prompt) tokens.  A model whose
+        layers are all per-token takes the packed launch (``pack_chunks``):
+        the rows' chunk tokens in one sequence of their summed widths, with
+        no pad.  Any other takes a (pow2 rows, chunk_width) launch with
+        per-row lengths, true widths and block-table rows; pad rows carry
+        width 0 and an all-INVALID table, so their writes drop.  Rows whose
+        last chunk lands activate for decode and publish their computed
+        full pages to the prefix index."""
         if not self.chunking:
             return
         sts = sorted(self.chunking.values(),
                      key=lambda st: self._queue_key((st.req_id,)))
         C = self._chunk_width
-        Bb = _pow2(len(sts))
+        widths = np.array([min(C, len(st.prompt) - st.filled)
+                           for st in sts], np.int32)
+        n_tok = int(widths.sum())
+        packed = self.model.packs_chunks()
         tr = self.trace
         if tr.enabled:
             tr.begin("prefill_chunk", cat="engine",
-                     args={"rows": len(sts), "width": C})
+                     args={"rows": len(sts), "width": C, "tokens": n_tok})
             tr.begin("pack", cat="engine")
-        toks = np.zeros((Bb, C), np.int32)
-        lens = np.zeros((Bb,), np.int32)
-        widths = np.zeros((Bb,), np.int32)
-        bt = np.full((Bb, self.kv.pages_per_slot), PagedKVCache.INVALID,
-                     np.int32)
-        for i, st in enumerate(sts):
-            n = min(C, len(st.prompt) - st.filled)
-            toks[i, :n] = st.prompt[st.filled:st.filled + n]
-            lens[i] = st.filled
-            widths[i] = n
-            bt[i] = self.kv.block_table[st.slot]
         dev = self.device
-        toks_t, lens_t, widths_t, bt_t = (
-            torch.as_tensor(a, device=dev) for a in (toks, lens, widths, bt))
+        if packed:
+            pack = pack_chunks(
+                [st.prompt[st.filled:st.filled + n]
+                 for st, n in zip(sts, widths)],
+                [st.filled for st in sts],
+                self.kv.table_rows([st.slot for st in sts]), self.kv.page,
+                dev)
+            slots = n_tok
+        else:
+            Bb = _pow2(len(sts))
+            toks = np.zeros((Bb, C), np.int32)
+            lens = np.zeros((Bb,), np.int32)
+            wide = np.zeros((Bb,), np.int32)
+            bt = np.full((Bb, self.kv.pages_per_slot), PagedKVCache.INVALID,
+                         np.int32)
+            for i, (st, n) in enumerate(zip(sts, widths)):
+                toks[i, :n] = st.prompt[st.filled:st.filled + n]
+                lens[i] = st.filled
+                wide[i] = n
+                bt[i] = self.kv.block_table[st.slot]
+            toks_t, lens_t, widths_t, bt_t = (
+                torch.as_tensor(a, device=dev)
+                for a in (toks, lens, wide, bt))
+            slots = toks.size
         if tr.enabled:
             tr.end()
             tr.begin("forward", cat="engine")
-        logits, self.cache, _ = self.model.prefill_chunk(
-            toks_t, self.cache, lens_t, widths_t, block_table=bt_t,
-            attn_impl=self._attn_impl)
+        if packed:
+            logits, self.cache, _ = self.model.prefill_chunk(
+                pack, self.cache, attn_impl=self._attn_impl)
+            self._chunks_packed.inc()
+        else:
+            logits, self.cache, _ = self.model.prefill_chunk(
+                toks_t, self.cache, lens_t, widths_t, block_table=bt_t,
+                attn_impl=self._attn_impl)
         if tr.enabled:
             tr.end()
             tr.begin("sample", cat="engine")
@@ -835,8 +865,8 @@ class ServingEngine:
             tr.end()
             tr.end()
         self.dispatches["prefill_chunk"] += 1
-        self.prefill_tokens_computed += int(widths.sum())
-        self._observe_fill("prefill", int(widths.sum()), toks.size)
+        self.prefill_tokens_computed += n_tok
+        self._observe_fill("prefill", n_tok, slots)
         now = time.perf_counter()
         for i, st in enumerate(sts):
             st.filled += int(widths[i])

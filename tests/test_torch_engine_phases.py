@@ -29,14 +29,14 @@ LAYOUTS = {
 }
 
 # By hand.  One descriptor launch: 3 prompts padded to (4, pow2(37) = 64).
-# Paged: chunk launches of (4, 16) [5, 16, 16], (2, 16) [4, 16], (1, 16)
-# [5].  Slotted: the 5-token prompt in one (1, 8) prefill, the others one
+# Paged: packed chunk launches of [5, 16, 16], [4, 16], [5] real tokens,
+# no pad (padded, they were (4, 16), (2, 16), (1, 16): 112 slots).  Slotted: the 5-token prompt in one (1, 8) prefill, the others one
 # (1, 16) chunk each a step: [16, 16], [4, 16], [5].  Decode, both: the
 # 5-token row decodes at steps 1-2, the 20-token one at 2-3, the 37-token
 # one at 3-4 (3 new tokens: the prefill's and two decoded), 4 launches of
 # 4 rows.
 EXPECT = {
-    "paged": {"descriptor": (1, 62, 256), "prefill": (3, 62, 112),
+    "paged": {"descriptor": (1, 62, 256), "prefill": (3, 62, 62),
               "decode": (4, 6, 16)},
     "slotted": {"descriptor": (1, 62, 256), "prefill": (6, 62, 88),
                 "decode": (4, 6, 16)},
@@ -128,7 +128,8 @@ def test_prefill_fill_counts_computed_tokens(model, layout):
     _, tokens, slots = _fill(eng, "prefill")
     assert tokens == eng.prefill_tokens_computed == sum(LENS) + 60 - (
         24 if layout == "paged" else 0)
-    assert tokens < slots
+    # the paged chunks are packed: their slots are their tokens
+    assert tokens == slots if layout == "paged" else tokens < slots
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))

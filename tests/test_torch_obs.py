@@ -222,17 +222,21 @@ def test_engine_trace_validates_and_matches_jax(obs_runs, tmp_path):
 # the port's pad-fill histograms: metrics the reference does not keep
 FILLS = {f"engine/fill/{k}/{q}" for k in ("descriptor", "prefill", "decode")
          for q in ("tokens", "slots")}
+# and its count of packed chunk launches
+PACKED = "engine/prefill_chunk_packed"
 
 
 def test_engine_registry_matches_jax(obs_runs):
     """The registry snapshots hold the same metric names but for the
-    port's six pad-fill histograms; every counter and gauge (the dispatch
-    bounds, hits, deadlines, KV and ladder counts) is equal, and
+    port's six pad-fill histograms and its packed-launch count (every
+    chunk launch here); every counter and gauge (the dispatch bounds,
+    hits, deadlines, KV and ladder counts) is equal, and
     ``check_metrics`` accepts the port's."""
     (_, _, jm), (_, _, tm) = obs_runs
     jsnap, tsnap = jm.snapshot(), tm.snapshot()
     check_metrics(tsnap)
-    assert set(tsnap) - set(jsnap) == FILLS
+    assert set(tsnap) - set(jsnap) == FILLS | {PACKED}
+    assert tsnap[PACKED] == jsnap["engine/dispatches/prefill_chunk"] > 0
     assert set(jsnap) <= set(tsnap)
     for name, v in jsnap.items():
         if not isinstance(v, dict):           # histograms hold wall times
