@@ -33,17 +33,16 @@ import torch
 
 from perfbench import check as CK
 from perfbench import devtrace as DT
+from perfbench import family as F
 from perfbench import weights as WG
 from perfbench.traffic import Traffic
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "repro", "benchmarks")
-
-# the model keys a configuration file states (the port's ModelConfig names)
-MODEL_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads",
-              "head_dim", "d_ff", "vocab_size", "mlp_kind",
-              "sliding_window", "tie_embeddings", "norm_eps", "rope_theta",
-              "qkv_bias", "dtype")
+# keys of a configuration's ``model`` that are the benchmark's, not the
+# port's ModelConfig fields: the registered config it starts from, and its
+# reference module (``family.py``)
+OWN_KEYS = ("arch", "reference")
 
 
 @dataclasses.dataclass
@@ -122,17 +121,42 @@ def model_spec(config: dict, overrides: Optional[dict] = None) -> dict:
     return spec
 
 
+def model_config(spec: dict):
+    """The port's ``ModelConfig`` of ``spec``: the registered ``arch`` with
+    every other key of the spec put in.  ``mla``, ``moe`` and ``ssm`` are
+    groups that state every field of their config (absent: none), so the
+    program and the reference read the same numbers."""
+    from repro_torch.configs import (MLAConfig, ModelConfig, MoEConfig,
+                                     SSMConfig, get_config)
+
+    groups = {"mla": MLAConfig, "moe": MoEConfig, "ssm": SSMConfig}
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = sorted(set(spec) - known - set(OWN_KEYS))
+    if unknown:
+        raise SystemExit(f"model keys {unknown} are not fields of the "
+                         "port's ModelConfig")
+    fields = {k: v for k, v in spec.items()
+              if k not in OWN_KEYS and k not in groups}
+    for key, cls in groups.items():
+        group = spec.get(key)
+        if group is None:
+            fields[key] = None
+            continue
+        names = {f.name for f in dataclasses.fields(cls)}
+        missing, extra = sorted(names - set(group)), sorted(set(group) - names)
+        if missing or extra:
+            raise SystemExit(f"model.{key}: {cls.__name__} fields "
+                             f"{missing} missing, {extra} unknown")
+        fields[key] = cls(**group)
+    return dataclasses.replace(get_config(spec["arch"]), **fields)
+
+
 def build_model(spec: dict, seed: int, device):
     """The program's model for ``spec``, with the benchmark's weights."""
-    from repro_torch.configs import get_config
     from repro_torch.models.transformer import DecoderLM
 
-    cfg = dataclasses.replace(get_config(spec["arch"]),
-                              **{k: spec[k] for k in MODEL_KEYS if k in spec})
-    if cfg.family != "dense" or cfg.moe or cfg.mla or cfg.ssm:
-        raise SystemExit(f"{cfg.name}: the reference covers dense GQA "
-                         "decoders only")
-    model = DecoderLM(cfg, device=device)
+    F.of(spec)                        # the reference module, or exit
+    model = DecoderLM(model_config(spec), device=device)
     load_weights(model, spec, seed)
     return model
 
@@ -146,7 +170,12 @@ def load_weights(model, spec: dict, seed: int) -> None:
         w = WG.layer(spec, seed, i, model.device, model.dtype)
         owner = model if i < 0 else model.layers[i]
         for name, t in w.items():
-            p = getattr(owner, {"embed": "embed_tokens"}.get(name, name))
+            p = getattr(owner, {"embed": "embed_tokens"}.get(name, name),
+                        None)
+            if p is None or p.shape != t.shape:
+                raise SystemExit(f"leaf {name} of layer {i}: the program's "
+                                 f"{None if p is None else tuple(p.shape)}, "
+                                 f"the benchmark's {tuple(t.shape)}")
             p.copy_(t)
             filled.add(id(p))
         del w

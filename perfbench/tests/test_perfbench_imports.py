@@ -1,7 +1,7 @@
 """Nothing under perfbench/ imports JAX, the JAX package or the JAX
 package's benchmarks (top-level names compared whole: ``repro_torch`` is
-not ``repro``), and the yardstick (reference, weights, work, traffic)
-imports nothing of the program."""
+not ``repro``), and the yardstick (reference and its modules, weights,
+work, traffic) imports nothing of the program."""
 import ast
 from pathlib import Path
 
@@ -10,7 +10,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "repro", "benchmarks"}
 YARDSTICK = ("reference.py", "weights.py", "work.py", "traffic.py",
-             "check.py", "readers.py", "devtrace.py")
+             "check.py", "readers.py", "devtrace.py", "family.py") + tuple(
+    str(p.relative_to(ROOT)) for p in sorted((ROOT / "refs").glob("*.py")))
 
 
 def _tops(path):
@@ -36,7 +37,8 @@ def test_yardstick_imports_no_program(name):
     tops = set(_tops(ROOT / name))
     assert "repro_torch" not in tops, tops
     assert tops <= {"perfbench", "torch", "numpy", "math", "bisect",
-                    "contextlib", "typing", "__future__", "time"}, tops
+                    "contextlib", "typing", "__future__", "time",
+                    "functools", "importlib", "pathlib", "types"}, tops
 
 
 def test_the_check_compares_names_whole():

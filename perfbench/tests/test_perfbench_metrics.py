@@ -2,10 +2,12 @@
 import pytest
 
 from perfbench import devtrace as DT
+from perfbench import family as F
 from perfbench import readers as R
 from perfbench import work as WK
 from perfbench.harness import Req, Window
 
+DENSE = F.module("dense")
 SPEC = {"num_layers": 2, "d_model": 8, "num_heads": 4, "num_kv_heads": 2,
         "head_dim": 2, "d_ff": 16, "vocab_size": 10, "mlp_kind": "gelu",
         "sliding_window": 0}
@@ -19,7 +21,7 @@ def _req(rid, S, n, finish, submit=0, source="cloud"):
 
 def test_layer_params_and_pairs():
     # attn 8*4*2 + 2*8*2*2 + 4*2*8 = 64+64+64; mlp 2*8*16+16+8; norms 16
-    assert WK.layer_params(SPEC) == 192 + 280 + 16
+    assert DENSE.layer_params(SPEC) == 192 + 280 + 16
     assert WK.keys_prefill(4, 0) == 10
     assert WK.keys_prefill(5, 2) == 3 + 3 * 2        # 1, 2, 2, 2, 2
     assert WK.keys_decode(9, 4) == 4 and WK.keys_decode(2, 0) == 3
@@ -37,7 +39,7 @@ def test_window_work_tokens_and_flops():
     w = Window(s0=10, s1=20, reqs=[r, q], spec=SPEC, k_layers=1, seconds=2.0)
     wk = R.window_work(w)
     assert wk.tokens_generated == 2 + 5
-    P, L, pair, head = WK.layer_params(SPEC), 2, 4 * 4 * 2, 2 * 8 * 10
+    P, L, pair, head = DENSE.layer_params(SPEC), 2, 4 * 4 * 2, 2 * 8 * 10
     flops = (2 * P * L * 4 + pair * 10 * L + head          # q's prefill
              + 6 * (2 * P * L + head)                      # 6 decodes
              + pair * L * (7 + 8 + 5 + 6 + 7 + 8)          # their keys
@@ -60,7 +62,7 @@ def test_hits_cost_a_descriptor_only():
     w = Window(s0=10, s1=20, reqs=[h], spec=SPEC, k_layers=2, seconds=1.0)
     wk = R.window_work(w)
     assert wk.tokens_generated == 0
-    assert wk.model_flops == 2 * WK.layer_params(SPEC) * 2 * 6 \
+    assert wk.model_flops == 2 * DENSE.layer_params(SPEC) * 2 * 6 \
         + 4 * 4 * 2 * 21 * 2
 
 
