@@ -98,6 +98,19 @@ class ModelConfig:
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
 
+    # Port-only fields (the reference has none); each default computes the
+    # reference's arithmetic.
+    # YaRN on MLA's rope dims at this factor, with the rest of DeepSeek-V2's
+    # published ``rope_scaling`` (``layers.YARN_*``); 1: plain RoPE and the
+    # plain 1/sqrt(dn + dr) softmax scale
+    yarn_factor: float = 1.0
+    # False: the router's top-k softmax weights are used as they are
+    # (DeepSeek-V2's ``norm_topk_prob``), not divided by their sum
+    moe_norm_topk_prob: bool = True
+    # True: no expert capacity, every assignment kept (``DecoderLM`` then
+    # takes the drop-free ``grouped`` route)
+    moe_drop_free: bool = False
+
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None

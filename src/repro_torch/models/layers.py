@@ -8,10 +8,12 @@ plain attention (q-chunked when long) and unmasked cross attention,
 causal attention of a full sequence through
 the flash-attention kernel (K8), the attention projections in the
 reference's einsum layouts (``wq`` (D, H, Dh), ``wo`` (H, Dh, D)), MLA
-(DeepSeek-V2's latent attention, plain PyTorch as in the reference), the
-dense MLPs (gated SiLU, and the two-matrix GELU with biases) and the
-mixture of experts (top-k softmax router; ``dense`` one-hot dispatch and
-``dropless`` capacity buffers).  ``init_leaf`` copies the reference's
+(DeepSeek-V2's latent attention, plain PyTorch as in the reference, with
+the port's YaRN on its rope dims), the dense MLPs (gated SiLU, and the
+two-matrix GELU with biases) and the mixture of experts (top-k softmax
+router, its weights renormalised or not; ``dense`` one-hot dispatch,
+``dropless`` capacity buffers, and the port's drop-free ``grouped`` route
+over expert-sorted assignments).  ``init_leaf`` copies the reference's
 initializer distribution for random weights at published widths.
 
 The sequence-sharded decode (``serving/sharded.py``) attends over each
@@ -20,11 +22,14 @@ rank's range of cache slots: ``partial_attention`` (GQA / MHA) and
 log-sum-exp of its logits, and ``merge_partials`` combines the ranks'.
 
 The expert products are plain ``bmm``/``einsum`` calls, as in the
-reference, which computes them outside any Pallas kernel.
+reference, which computes them outside any Pallas kernel; the ``grouped``
+route runs them as grouped GEMMs (``torch._grouped_mm`` on the card, one
+matrix product per expert elsewhere).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -128,10 +133,14 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotate-half RoPE.  x: (..., S, H, D); positions: (..., S)."""
+               theta: float, inv_freq: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Rotate-half RoPE.  x: (..., S, H, D); positions: (..., S).
+    ``inv_freq`` (D/2,) replaces theta's frequencies (YaRN,
+    ``mla_rope``)."""
     d = x.shape[-1]
-    inv_freq = rope_frequencies(d, theta, x.device)              # (d/2,)
+    if inv_freq is None:
+        inv_freq = rope_frequencies(d, theta, x.device)          # (d/2,)
     angles = positions[..., None].float() * inv_freq             # (.., S, d/2)
     cos = torch.cos(angles)[..., None, :]                        # (.., S, 1, d/2)
     sin = torch.sin(angles)[..., None, :]
@@ -313,6 +322,10 @@ def attention_out(blk, attn: torch.Tensor) -> torch.Tensor:
 # ``mla_attention``, so the (Sq, Sk) logits never materialise in full
 CHUNKED_ATTN_THRESHOLD = 8192
 CHUNK_Q = 1024
+# The port's memory bound (the reference has none): one block's (B, H, Sq,
+# Sk) fp32 logits hold at most this many elements (1 GiB); a longer query
+# side runs in blocks of queries, each row's softmax its own
+ATTN_LOGITS_MAX = 1 << 28
 
 
 def mla_specs(cfg) -> dict:
@@ -326,14 +339,70 @@ def mla_specs(cfg) -> dict:
             "wo": (H, dv, D)}
 
 
+# The rest of DeepSeek-V2's published ``rope_scaling`` (type yarn), beside
+# the config's ``yarn_factor``: the context it was trained at, the
+# rotations that bound the correction ramp, and ``mscale`` =
+# ``mscale_all_dim`` (so cos and sin keep their scale, and only the softmax
+# scale takes YaRN's attention factor)
+YARN_ORIGINAL_MAX_POSITION = 4096
+YARN_BETA_FAST = 32
+YARN_BETA_SLOW = 1
+YARN_MSCALE_ALL_DIM = 0.707
+
+
+def yarn_mscale(factor: float) -> float:
+    """YaRN's attention factor 0.1 m ln(s) + 1, m = ``YARN_MSCALE_ALL_DIM``
+    (1 for s <= 1)."""
+    return (1.0 if factor <= 1
+            else 0.1 * YARN_MSCALE_ALL_DIM * math.log(factor) + 1.0)
+
+
+def yarn_frequencies(cfg, device) -> torch.Tensor:
+    """(dr/2,) YaRN inverse frequencies of MLA's rope dims, as DeepSeek-V2's
+    published modelling code builds them: theta^(-2i/dr) extrapolated
+    below the correction dim of ``YARN_BETA_FAST`` rotations, the same /
+    ``yarn_factor`` interpolated above that of ``YARN_BETA_SLOW``, a
+    linear ramp between (for DeepSeek-V2-Lite: dims 10 and 23 of 64)."""
+    d, base = cfg.mla.qk_rope_head_dim, cfg.rope_theta
+
+    def dim_of(rotations):
+        return (d * math.log(YARN_ORIGINAL_MAX_POSITION
+                             / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(dim_of(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(dim_of(YARN_BETA_SLOW)), d - 1)
+    extra = rope_frequencies(d, base, device)
+    inter = extra / cfg.yarn_factor
+    ramp = ((torch.arange(d // 2, dtype=torch.float32, device=device) - low)
+            / (high - low if high > low else 0.001)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
+
+
+def mla_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """RoPE of MLA's rope dims (q_rope, k_rope): plain under
+    ``yarn_factor`` 1, else at YaRN's frequencies."""
+    if cfg.yarn_factor <= 1:
+        return apply_rope(x, positions, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta,
+                      inv_freq=yarn_frequencies(cfg, x.device))
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: 1/sqrt(dn + dr), times ``yarn_mscale``^2 under
+    YaRN."""
+    m = cfg.mla
+    scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return scale * yarn_mscale(cfg.yarn_factor) ** 2
+
+
 def mla_latent(cfg, blk, x: torch.Tensor, positions: torch.Tensor):
     """The cached quantities: the normalised latent c_kv (B, S, r) and
     the shared, rotated k_rope (B, S, dr)."""
     c_kv = torch.einsum("bsd,dr->bsr", x, blk.w_dkv)
     c_kv = rms_norm(c_kv, blk.kv_norm, cfg.norm_eps)
     k_rope = torch.einsum("bsd,dr->bsr", x, blk.w_krope)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]
+    k_rope = mla_rope(cfg, k_rope[:, :, None, :], positions)[:, :, 0, :]
     return c_kv, k_rope
 
 
@@ -346,18 +415,18 @@ def mla_attention(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
     cover the whole key side (B, Sk, r) / (B, Sk, dr).  Either an
     explicit ``mask`` (B, Sq, Sk) (chunks and decode) or ``k_positions``
     for a causal mask, built per block of ``CHUNK_Q`` queries once
-    max(Sq, Sk) reaches ``CHUNKED_ATTN_THRESHOLD``.  Scale 1/sqrt(dn +
-    dr); the -1e30 fill before the fp32 softmax; probabilities cast to
-    v's dtype, as in the reference."""
-    m = cfg.mla
+    max(Sq, Sk) reaches ``CHUNKED_ATTN_THRESHOLD``; either way in blocks
+    of queries whose logits stay under ``ATTN_LOGITS_MAX``.  Scale
+    ``mla_scale``; the -1e30 fill before the fp32 softmax; probabilities
+    cast to v's dtype, as in the reference."""
     H = cfg.num_heads
-    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    dn = cfg.mla.qk_nope_head_dim
     q = torch.einsum("bsd,dhe->bshe", x, blk.wq)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = apply_rope(q_rope, q_positions, cfg.rope_theta)
+    q_rope = mla_rope(cfg, q_rope, q_positions)
     k_nope = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uk)   # (B,Sk,H,dn)
     v = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uv)        # (B,Sk,H,dv)
-    scale = 1.0 / np.sqrt(dn + dr)
+    scale = mla_scale(cfg)
 
     def attend(qn, qr, msk):
         logits = (torch.einsum("bshe,bthe->bhst", qn, k_nope)
@@ -367,19 +436,23 @@ def mla_attention(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         return torch.einsum("bhst,bthe->bshe", probs, v)
 
+    def mask_of(i, j):
+        if mask is not None:
+            return mask[:, i:j]
+        return attention_mask(q_positions[:, i:j], k_positions, causal=True)
+
     Sq, Sk = x.shape[1], c_kv.shape[1]
-    if mask is not None:
-        attn = attend(q_nope, q_rope, mask)
-    elif (max(Sq, Sk) >= CHUNKED_ATTN_THRESHOLD and Sq > CHUNK_Q
-          and Sq % CHUNK_Q == 0):
-        attn = torch.cat([
-            attend(q_nope[:, i:i + CHUNK_Q], q_rope[:, i:i + CHUNK_Q],
-                   attention_mask(q_positions[:, i:i + CHUNK_Q],
-                                  k_positions, causal=True))
-            for i in range(0, Sq, CHUNK_Q)], dim=1)
+    block = max(1, ATTN_LOGITS_MAX // (x.shape[0] * H * Sk))
+    if (mask is None and max(Sq, Sk) >= CHUNKED_ATTN_THRESHOLD
+            and Sq > CHUNK_Q and Sq % CHUNK_Q == 0):
+        block = min(block, CHUNK_Q)          # the reference's q-chunks
+    if block >= Sq:
+        attn = attend(q_nope, q_rope, mask_of(0, Sq))
     else:
-        attn = attend(q_nope, q_rope,
-                      attention_mask(q_positions, k_positions, causal=True))
+        attn = torch.cat([
+            attend(q_nope[:, i:i + block], q_rope[:, i:i + block],
+                   mask_of(i, i + block))
+            for i in range(0, Sq, block)], dim=1)
     return torch.einsum("bshe,hed->bsd", attn, blk.wo)
 
 
@@ -389,16 +462,15 @@ def mla_partial(cfg, blk, x: torch.Tensor, c_kv: torch.Tensor,
     """``mla_attention``'s core over the latent slots a rank holds, before
     the output projection: (attn (B, Sq, H, dv), lse (B, Sq, H) fp32).
     ``valid`` (B, Sq, Sk) marks the rank's visible slots."""
-    m = cfg.mla
-    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    dn = cfg.mla.qk_nope_head_dim
     q = torch.einsum("bsd,dhe->bshe", x, blk.wq)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = apply_rope(q_rope, q_positions, cfg.rope_theta)
+    q_rope = mla_rope(cfg, q_rope, q_positions)
     k_nope = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uk)
     v = torch.einsum("btr,rhe->bthe", c_kv, blk.w_uv)
     logits = (torch.einsum("bshe,bthe->bhst", q_nope, k_nope)
               + torch.einsum("bshe,bte->bhst", q_rope, k_rope)
-              ).float() * (1.0 / np.sqrt(dn + dr))
+              ).float() * mla_scale(cfg)
     probs, lse = softmax_partial(logits, valid[:, None, :, :])
     attn = torch.einsum("bhst,bthe->bshe", probs.to(v.dtype), v)
     return attn, lse.transpose(1, 2)
@@ -442,16 +514,20 @@ def dense_mlp_apply(cfg, blk, x: torch.Tensor, reduce=_same) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def moe_router(x: torch.Tensor, router: torch.Tensor, top_k: int):
+def moe_router(x: torch.Tensor, router: torch.Tensor, top_k: int,
+               renorm: bool = True):
     """Top-k softmax router.  x: (N, D) flat tokens.  Returns (weights
     (N, k) fp32, ids (N, k) int64, Switch-style aux loss).  The logits
     are a matmul in the model's dtype, the softmax fp32; ties go to the
-    lower expert id (``lax.top_k``'s order: a stable descending sort)."""
+    lower expert id (``lax.top_k``'s order: a stable descending sort).
+    The top-k weights are renormalised to sum to 1 unless ``renorm`` is
+    False (``ModelConfig.moe_norm_topk_prob``)."""
     logits = (x @ router).float()
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :top_k], ids[:, :top_k]
-    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    if renorm:
+        weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
     E = logits.shape[-1]
     me = probs.mean(dim=0)
     one_hot = torch.nn.functional.one_hot(ids, E).float().sum(1)  # (N, E)
@@ -475,7 +551,8 @@ def moe_apply_dense(cfg, w, x: torch.Tensor):
     B, S, D = x.shape
     N = B * S
     xf = x.reshape(N, D)
-    weights, ids, aux = moe_router(xf, w.router, m.top_k)
+    weights, ids, aux = moe_router(xf, w.router, m.top_k,
+                                   cfg.moe_norm_topk_prob)
     comb = torch.zeros((N, m.num_experts), dtype=torch.float32,
                        device=x.device)
     comb.scatter_add_(1, ids, weights)                             # (N, E)
@@ -516,7 +593,8 @@ def moe_apply_dropless(cfg, w, x: torch.Tensor,
     N, k, E = B * S, m.top_k, m.num_experts
     C = moe_capacity(N, cfg, capacity_factor)
     xf = x.reshape(N, D)
-    weights, ids, aux = moe_router(xf, w.router, k)               # (N, k)
+    weights, ids, aux = moe_router(xf, w.router, k,
+                                   cfg.moe_norm_topk_prob)        # (N, k)
     flat_ids = ids.reshape(N * k)
     # token-major rank within its expert: a stable sort keeps each
     # expert's assignments in order, and a slot's rank in its run is its
@@ -600,7 +678,8 @@ def moe_apply_dropless_ep(cfg, w, x: torch.Tensor,
     probs = torch.softmax((xf @ router).float(), dim=-1)
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :k], ids[:, :k]
-    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    if cfg.moe_norm_topk_prob:
+        weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
     # load-balance aux: me / fe are the means over every data rank's rows
     me = mean_over(probs.mean(dim=0), mesh, dp)
     fe = mean_over(torch.nn.functional.one_hot(ids, E).float().sum(1)
@@ -654,21 +733,74 @@ def moe_apply_dropless_ep(cfg, w, x: torch.Tensor,
     return _shared_experts(cfg, w, x, out), aux
 
 
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """Rows of ``x`` (M, K) sorted by group, times their group's matrix
+    of ``w`` (G, K, N); ``ends`` (G,) int32 holds each group's end row
+    (an empty group repeats the one before).  On the card one
+    ``torch._grouped_mm`` launch with the ends on the device (no sync);
+    elsewhere one matrix product per group."""
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=ends)
+    out = x.new_empty((x.shape[0], w.shape[2]))
+    lo = 0
+    for g, hi in enumerate(ends.tolist()):
+        out[lo:hi] = x[lo:hi] @ w[g]
+        lo = hi
+    return out
+
+
+def moe_apply_grouped(cfg, w, x: torch.Tensor):
+    """Drop-free dispatch (``ModelConfig.moe_drop_free``): the N k
+    assignments sorted by expert on the device (a stable sort, so each
+    expert's run is token-major), each expert's run through its gate, up
+    and down matrices as three grouped GEMMs (``grouped_mm``), the
+    outputs put back in token-major order and summed over k by the router
+    weights in fp32, as ``moe_apply_dropless`` combines its slots.  No
+    assignment drops, so a token's output does not depend on the other
+    tokens of the call; with nothing dropped it is the dropless result.
+    x: (B, S, D) -> ((B, S, D), aux)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    N, k, E = B * S, m.top_k, m.num_experts
+    xf = x.reshape(N, D)
+    weights, ids, aux = moe_router(xf, w.router, k, cfg.moe_norm_topk_prob)
+    flat_ids = ids.reshape(N * k)
+    order = torch.argsort(flat_ids, stable=True)
+    ends = expert_counts(flat_ids, E).cumsum(0).to(torch.int32)
+    xs = xf[order // k]                                        # (N*k, D)
+    g = grouped_mm(xs, w.we_gate, ends)
+    u = grouped_mm(xs, w.we_up, ends)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    y = grouped_mm(h, w.we_down, ends)                         # sorted
+    y = torch.empty_like(y).index_copy_(0, order, y)           # token-major
+    out = (y.float() * weights.reshape(N * k, 1)).reshape(N, k, D).sum(1)
+    out = out.to(x.dtype).reshape(B, S, D)
+    return _shared_experts(cfg, w, x, out), aux
+
+
+MOE_IMPLS = ("dense", "dropless", "ep", "grouped")
+
+
 def check_moe_impl(impl: str) -> None:
-    """``dense`` | ``dropless`` | ``ep``; any other name is refused."""
-    if impl not in ("dense", "dropless", "ep"):
-        raise ValueError(f"moe impl {impl!r} not in dense | dropless | ep")
+    """``dense`` | ``dropless`` | ``ep`` | ``grouped``; any other name is
+    refused."""
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"moe impl {impl!r} not in "
+                         + " | ".join(MOE_IMPLS))
 
 
 def moe_apply(cfg, w, x: torch.Tensor, impl: str = "dense"):
-    """``dense`` | ``dropless`` | ``ep`` (``check_moe_impl``).  Under the
-    sharded train step (a sharder whose ``rows`` are split) ``dense`` and
-    ``dropless`` see the whole batch, as the reference's global dispatch
-    does: the rows are gathered, and this rank keeps its own."""
+    """``dense`` | ``dropless`` | ``ep`` | ``grouped``
+    (``check_moe_impl``).  Under the sharded train step (a sharder whose
+    ``rows`` are split) ``dense``, ``dropless`` and ``grouped`` see the
+    whole batch, as the reference's global dispatch does: the rows are
+    gathered, and this rank keeps its own."""
     check_moe_impl(impl)
     if impl == "ep":
         return moe_apply_dropless_ep(cfg, w, x)
-    fn = moe_apply_dropless if impl == "dropless" else moe_apply_dense
+    fn = {"dense": moe_apply_dense, "dropless": moe_apply_dropless,
+          "grouped": moe_apply_grouped}[impl]
     sh = current_sharder()
     if sh is None or not sh.rows:
         return fn(cfg, w, x)

@@ -16,7 +16,8 @@ sliding-window, with optional QKV biases, or DeepSeek's MLA; SSM layers
 are Mamba-2 SSD blocks (``models/ssm.py``); each MLP is dense (gated SiLU
 or the two-matrix GELU, by ``cfg.mlp_kind``), a mixture of experts
 (``moe_impl`` ``dense`` | ``dropless``; the reference's rule picks
-``dropless`` from d_model 1024) or none.  A vision-language model
+``dropless`` from d_model 1024; a config with no expert capacity takes the
+port's drop-free ``grouped`` route) or none.  A vision-language model
 (llava) takes precomputed patch embeddings, ``image_embeds`` (B, P, D),
 placed before the token embeddings, as in the reference, whose vision
 tower is a stub too.  Encoder-decoder configs build
@@ -458,10 +459,19 @@ class DecoderLM(nn.Module):
         self.plan = build_plan(cfg)
         self.attention_impl = attention_impl
         # the reference's rule: the dispatch einsums of ``dense`` dominate
-        # at scale, so wide models take the capacity buffers
-        self.moe_impl = moe_impl or ("dropless" if cfg.d_model >= 1024
-                                     else "dense")
+        # at scale, so wide models take the capacity buffers; a drop-free
+        # config (``moe_drop_free``) takes the grouped route
+        drop_free = cfg.moe is not None and cfg.moe_drop_free
+        self.moe_impl = moe_impl or (
+            "grouped" if drop_free
+            else "dropless" if cfg.d_model >= 1024 else "dense")
         L.check_moe_impl(self.moe_impl)
+        if drop_free and self.moe_impl in ("dropless", "ep"):
+            raise ValueError(f"moe_impl {self.moe_impl!r} drops past a "
+                             "capacity; moe_drop_free drops nothing")
+        if cfg.yarn_factor != 1 and cfg.mla is None:
+            raise ValueError("yarn_factor scales MLA's rope dims; "
+                             f"{cfg.name} has no MLA")
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         dev, dt = self.device, self.dtype
@@ -494,8 +504,15 @@ class DecoderLM(nn.Module):
         # attention, and MLPs whose result does not depend on the launch's
         # other tokens (a dropless MoE's capacity does)
         self._per_token = cfg.mla is None and all(
-            b.kind == "attn" and (b.mlp != "moe" or self.moe_impl == "dense")
+            b.kind == "attn" and (b.mlp != "moe"
+                                  or self.moe_impl in ("dense", "grouped"))
             for b in blocks)
+        # latent rows MLA has expanded to per-head K and V in the cache
+        # launches (``prefill``, ``prefill_chunk``, ``decode_step``): rows x
+        # the keys each row attends over, summed over MLA layers; a host
+        # tally of shapes (no sync), which the serving engine reads and
+        # clears after each launch
+        self.mla_expanded = 0
 
     # ------------------------------------------------------------------
     def leaves(self):
@@ -884,6 +901,8 @@ class DecoderLM(nn.Module):
             # reference: transformer.py:552 (the prefill body)
             x = constrain(x, ("batch", None, "act_embed"))
             x, new, _ = self._layer_fwd(blk, x, positions, for_cache=True)
+            if blk.kind == "mla":
+                self.mla_expanded += B * S
             for name, leaf, val in zip(self._names_of(i),
                                        self._leaves_of(cache, i), new):
                 if blk.kind == "ssm":
@@ -998,6 +1017,7 @@ class DecoderLM(nn.Module):
             ckv = paged_gather_view(ckv, block_table)
             krope = paged_gather_view(krope, block_table)
         Sk = ckv.shape[1]
+        self.mla_expanded += h.shape[0] * Sk
         kpos = torch.arange(Sk, device=h.device)[None, :].expand(
             h.shape[0], Sk)
         mask = L.attention_mask(positions, kpos, causal=True)
@@ -1132,7 +1152,7 @@ class DecoderLM(nn.Module):
     def packs_chunks(self) -> bool:
         """Whether ``prefill_chunk`` takes a ``PackedChunk`` here: every
         layer per-token (GQA attention, a dense MLP or a dense-dispatch
-        MoE) and no serve sharder installed."""
+        or drop-free grouped MoE) and no serve sharder installed."""
         return self._per_token and serve_sharder() is None
 
     def _prefill_packed(self, pack: PackedChunk, cache: dict,
@@ -1243,6 +1263,7 @@ class DecoderLM(nn.Module):
                 write(leaf, val[:, 0])
             kpos = lo + torch.arange(n, device=h.device)
             valid = (kpos[None, :] <= lengths.long()[:, None])[:, None, :]
+            self.mla_expanded += h.shape[0] * n
             attn, lse = L.mla_partial(cfg, blk, h, *leaves, positions, valid)
             attn = L.merge_partials(attn, lse, mesh, slots)
             return torch.einsum("bshe,hed->bsd", attn, blk.wo)

@@ -38,7 +38,9 @@ ladder bound (``max_step_ladder <= 2``) stays checkable.  Port-only
 observability: under a tracer each model launch's span holds ``pack``,
 ``forward`` and ``sample`` spans, and every launch, traced or not, feeds
 ``engine/fill/{descriptor,prefill,decode}/{tokens,slots}``: the real
-tokens and the padded slots of the shape the model ran.
+tokens and the padded slots of the shape the model ran; an MLA model's
+prefill, chunk and decode launches feed ``engine/mla/{expanded,written}``:
+the latent rows expanded to per-head K and V, and those written.
 
 The port serves both cache layouts behind any CoIC org: a cooperative
 cluster of one or more nodes, or a cross-cluster federation, with an
@@ -242,6 +244,15 @@ class ServingEngine:
         self._fill = {k: (self.metrics.histogram(f"engine/fill/{k}/tokens"),
                           self.metrics.histogram(f"engine/fill/{k}/slots"))
                       for k in ("descriptor", "prefill", "decode")}
+        # per launch of an MLA model over its latent cache: the latent rows
+        # it expands to per-head K and V (the model's own tally,
+        # ``DecoderLM.mla_expanded``), and the latent rows it writes (real
+        # tokens x MLA layers); a model without MLA registers neither
+        self._mla_layers = sum(b.kind == "mla" for b in model.layers)
+        self._mla = ((self.metrics.histogram("engine/mla/expanded"),
+                      self.metrics.histogram("engine/mla/written"))
+                     if self._mla_layers else None)
+        model.mla_expanded = 0       # launches before this engine are not its
         self._last_step_ladder = self.metrics.gauge("engine/last_step_ladder")
         self._max_step_ladder = self.metrics.gauge("engine/max_step_ladder")
 
@@ -482,6 +493,16 @@ class ServingEngine:
         tok_h.observe(tokens)
         slot_h.observe(slots)
 
+    def _observe_mla(self, written: int) -> None:
+        """An MLA model's launch, just run: the latent rows the model
+        counted as expanded (its tally, cleared here), ``written`` real
+        tokens written."""
+        if self._mla is not None:
+            expanded_h, written_h = self._mla
+            expanded_h.observe(self.model.mla_expanded)
+            self.model.mla_expanded = 0
+            written_h.observe(written * self._mla_layers)
+
     # ------------------------------------------------------------------
     def _pad_prompts(self, prompts: List[np.ndarray], fill: int,
                      exact: bool = False):
@@ -686,6 +707,7 @@ class ServingEngine:
         self.dispatches["prefill"] += 1
         self.prefill_tokens_computed += int(lens.sum())
         self._observe_fill("prefill", int(lens.sum()), toks.size)
+        self._observe_mla(int(lens.sum()))
         slots = [self.free_slots.pop() for _ in range(m)]
         batch_cache_scatter(self.cache,
                             {k: v[:, :m] for k, v in many_cache.items()},
@@ -759,6 +781,7 @@ class ServingEngine:
         self.dispatches["prefill_chunk"] += 1
         self.prefill_tokens_computed += n
         self._observe_fill("prefill", n, C)
+        self._observe_mla(n)
         st.filled += n
         if not last:
             return
@@ -867,6 +890,7 @@ class ServingEngine:
         self.dispatches["prefill_chunk"] += 1
         self.prefill_tokens_computed += n_tok
         self._observe_fill("prefill", n_tok, slots)
+        self._observe_mla(n_tok)
         now = time.perf_counter()
         for i, st in enumerate(sts):
             st.filled += int(widths[i])
@@ -999,6 +1023,7 @@ class ServingEngine:
         self._decode_ms.observe((time.perf_counter() - t0) * 1e3)
         self._observe_fill("decode", int(self.row_active.sum()),
                            self.cfg.max_batch)
+        self._observe_mla(int(self.row_active.sum()))
         if tr.enabled:
             tr.end()
         for slot in list(self.active):

@@ -3,7 +3,10 @@ CPU): under a tracer every model launch's span holds ``pack``, ``forward``
 and ``sample`` (the slotted decode has nothing to pack; a slotted chunk
 that is not a prompt's last reads no token), and every launch feeds
 ``engine/fill/{descriptor,prefill,decode}/{tokens,slots}`` with the real
-tokens and the slots of the padded shape it ran, traced or not.
+tokens and the slots of the padded shape it ran, traced or not; an MLA
+model's prefill, chunk and decode launches feed
+``engine/mla/{expanded,written}`` (latent rows expanded to per-head K and
+V, latent rows written).
 
 A tiny fp32 ``coic-paper`` behind a prefix descriptor serves three
 prompts of 5, 20 and 37 tokens at once (4 rows, chunks of 16, 3 new
@@ -189,3 +192,62 @@ def test_traced_and_untraced_serve_the_same(model, layout):
     assert spy.calls == []
     for kind in EXPECT[layout]:
         assert _fill(traced, kind) == _fill(untraced, kind)
+
+
+# An MLA model (reduced deepseek-v2-lite, 2 MLA layers) on the same
+# prompts: each launch observes the latent rows it expands (rows x the keys
+# each row's view holds x 2 layers) and those it writes (real tokens x 2).
+# Paged: MLA keeps the padded chunk, (4, 16), (2, 16), (1, 16), each row
+# viewing its whole table of max_len 64 keys; 4 decodes of 4 rows x 64.
+# Slotted: the (1, 8) prefill views its 8 padded keys, the five (1, 16)
+# chunks their B=1 cache of 64; 4 decodes of 4 rows x 64.
+MLA_EXPECT = {
+    "paged": {"expanded": (7, (4 + 2 + 1) * 64 * 2 + 4 * 4 * 64 * 2),
+              "written": (7, (62 + 6) * 2)},
+    "slotted": {"expanded": (10, 8 * 2 + 5 * 64 * 2 + 4 * 4 * 64 * 2),
+                "written": (10, (62 + 6) * 2)},
+}
+
+
+@pytest.fixture(scope="module")
+def mla_model():
+    from repro_torch.configs import reduced_config
+    cfg = dataclasses.replace(reduced_config(get_config(
+        "deepseek-v2-lite-16b")), dtype="float32")
+    return build_model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_mla_counters_match_hand_views(model, mla_model, layout):
+    eng = _engine(mla_model, layout)
+    res = _serve(eng, second_wave=False)
+    assert [s for s, _ in res.values()] == ["cloud"] * 3
+    got = {k: (h.count, h.sum) for k in ("expanded", "written")
+           for h in (eng.metrics.get(f"engine/mla/{k}"),)}
+    assert got == MLA_EXPECT[layout]
+    # a model without MLA registers neither
+    plain = _engine(model, layout)
+    _serve(plain, second_wave=False)
+    assert not {"engine/mla/expanded", "engine/mla/written"} & set(
+        plain.metrics.snapshot())
+
+
+def test_mla_tally_counts_the_gathered_width(mla_model):
+    """The model counts what MLA expands, not what the engine's table
+    holds: a paged decode step of 3 rows through a block table of 5 pages
+    of 4 (20 keys, not a ``max_len``) expands 3 x 20 latent rows in each
+    of the 2 MLA layers, and a full prefill of (2, 7) tokens 2 x 7 each."""
+    m = mla_model
+    m.mla_expanded = 0
+    pool = {k: torch.zeros(s, dtype=d)
+            for k, (s, d) in m.paged_cache_specs(16, 4).items()}
+    table = torch.arange(15, dtype=torch.int32).reshape(3, 5)
+    m.decode_step(pool, torch.tensor([1, 2, 3]),
+                  torch.tensor([0, 6, 19], dtype=torch.int32),
+                  block_table=table)
+    assert m.mla_expanded == 3 * 20 * 2
+    m.mla_expanded = 0
+    m.prefill(torch.ones((2, 7), dtype=torch.long), max_len=16)
+    assert m.mla_expanded == 2 * 7 * 2
+    m.mla_expanded = 0

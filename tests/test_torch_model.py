@@ -58,12 +58,22 @@ PORTED = ["coic-paper", "llama3.2-1b", "h2o-danube3-4b", "granite-20b",
           "mamba2-2.7b", "jamba-v0.1-52b", "llava-next-34b", "whisper-small"]
 
 
-def _fields(cfg):
+def _fields(cfg, like=None):
     """Field values, sub-configs (``MoEConfig``, ...) compared by their
-    own fields: the two packages' dataclasses are different types."""
-    return {f.name: (_fields(v) if dataclasses.is_dataclass(v) else v)
-            for f in dataclasses.fields(cfg)
-            for v in (getattr(cfg, f.name),)}
+    own fields: the two packages' dataclasses are different types.  With
+    ``like`` (the reference's twin) only the fields it has; the port's
+    own fields must then hold their defaults (``ModelConfig.yarn_factor``,
+    ``moe_norm_topk_prob`` and ``moe_drop_free``), which compute the
+    reference's arithmetic (``tests/test_torch_moe_grouped.py``)."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if like is not None and not hasattr(like, f.name):
+            assert v == f.default, (type(cfg).__name__, f.name, v)
+            continue
+        sub = None if like is None else getattr(like, f.name)
+        out[f.name] = _fields(v, sub) if dataclasses.is_dataclass(v) else v
+    return out
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -72,8 +82,10 @@ def test_configs_equal_reference(name):
     included), full and reduced, and so are each layer's kind and MoE
     flag."""
     from repro.configs import reduced_config
-    assert _fields(torch_get_config(name)) == _fields(get_config(name))
-    assert (_fields(torch_reduced(torch_get_config(name)))
+    assert (_fields(torch_get_config(name), get_config(name))
+            == _fields(get_config(name)))
+    assert (_fields(torch_reduced(torch_get_config(name)),
+                    reduced_config(get_config(name)))
             == _fields(reduced_config(get_config(name))))
     for t, j in ((torch_get_config(name), get_config(name)),
                  (torch_reduced(torch_get_config(name)),
