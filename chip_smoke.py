@@ -66,9 +66,11 @@ Phases, one line each; any failure raises and exits non-zero:
                wave; K1-K3, K5 and K8 held;
  11. mla     — deepseek-v2-lite-16b at full width and depth (27 layers,
                MLA, 64 experts top-6 and 2 shared, ``dropless``) on the
-               paged path: the serve phase's waves; K1-K3 held; K5 and K8
-               launch 0 times (MLA gathers its latent, as in the
-               reference); the latent pages of the session heads shared;
+               paged path: the serve phase's waves; K1-K3 held; every
+               launch of the absorbed MLA decode (27 a decode step) held;
+               K5, K7 and K8 launch 0 times (the chunks gather and expand
+               the latent, as in the reference); the latent pages of the
+               session heads shared;
  12. ssm     — mamba2-2.7b at full width and depth (64 SSD layers) on the
                slotted path, exact-length prefill runs: 4 prompts of 256
                and 4 of 512 tokens, then those 8 and 8 new; K1-K3 held, no
@@ -2378,14 +2380,64 @@ def phase_qkvb(torch):
     return launches, st["completed"], held
 
 
+def hold_latent_launches(torch):
+    """Patch the absorbed MLA decode's wrapper so that every launch is held,
+    as it is made, against the plain version run in fp32 on the same values
+    (the pools as the launch read them): a row whose table maps a first
+    page within ``ATTN_TOL`` of the launch's dtype (bf16 outputs from
+    ``BF16_STEP_FROM`` up within one bf16 step), any other row exact
+    zeros.  Returns (report, restore)."""
+    import repro_torch.kernels.paged_latent.ops as pl_ops
+    from repro_torch.kernels.paged_latent.ref import paged_latent_ref
+
+    orig = pl_ops.paged_latent_cuda
+    rep = {"held": 0, "max_abs_err_below_4": 0.0, "bf16_steps_from_4": 0.0,
+           "max_abs_out": 0.0}
+
+    def held(q_lat, q_rope, ckv, krope, bt, n_vis, scale):
+        out = orig(q_lat, q_rope, ckv, krope, bt, n_vis, scale)
+        exact = paged_latent_ref(q_lat.float(), q_rope.float(), ckv.float(),
+                                 krope.float(), bt, n_vis, scale)
+        live = bt[:, 0] < ckv.shape[0]
+        o = out.float()
+        assert bool((o[~live] == 0).all()), ("paged_latent", "idle row")
+        o, exact = o[live], exact[live]
+        big = torch.maximum(o.abs(), exact.abs()) >= (
+            BF16_STEP_FROM if out.dtype == torch.bfloat16 else float("inf"))
+        if bool((~big).any()):
+            rep["max_abs_err_below_4"] = max(
+                rep["max_abs_err_below_4"],
+                float((o - exact)[~big].abs().max()))
+        if bool(big.any()):
+            rep["bf16_steps_from_4"] = max(
+                rep["bf16_steps_from_4"],
+                bf16_steps(torch, o[big], exact[big]))
+        rep["max_abs_out"] = max(rep["max_abs_out"],
+                                 float(o.abs().max()) if o.numel() else 0.0)
+        tol = ATTN_TOL[_dt(out.dtype)]
+        assert (rep["max_abs_err_below_4"] <= tol
+                and rep["bf16_steps_from_4"] <= 1.0), ("paged_latent", rep)
+        rep["held"] += 1
+        return out
+
+    pl_ops.paged_latent_cuda = held
+
+    def restore():
+        pl_ops.paged_latent_cuda = orig
+    return rep, restore
+
+
 def phase_mla(torch):
     """deepseek-v2-lite-16b at full width and depth (27 layers: the dense
     ``prefix0``, then 26 MoE layers of 64 experts top-6 and 2 shared; MLA
     with a 512-wide latent and 64 rope dims), bf16, ``dropless``, on the
     serve path's paged engine: 8 prompts of 96-320 tokens over 2 session
-    heads, then those 8 and 8 new, then a profiled wave.  MLA gathers its
-    latent pages, as in the reference: K5 and K8 never launch; every K1-K3
-    launch is held; the latent pages of the session heads are shared."""
+    heads, then those 8 and 8 new, then a profiled wave.  The chunks
+    gather their latent pages and expand them, as in the reference; each
+    decode step runs the absorbed MLA decode over the pages in place, 27
+    launches, every one held (``hold_latent_launches``); K5, K7 and K8
+    never launch; every K1-K3 launch is held; the latent pages of the
+    session heads are shared."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -2398,17 +2450,33 @@ def phase_mla(torch):
     # the descriptor's MoE layer depends on the prompts batched with it
     # (the call's dropless capacity, as in the reference), so the lookup
     # API's hits are read, not gated
-    launches, st, held, _ = serve_family(
-        torch, model, "mla", (wave1, wave1 + stream(rng, V, heads, 8)),
-        SIM_KERNELS, profile=stream(rng, V, heads, 8), must_hit=0)
+    rep, restore = hold_latent_launches(torch)
+    try:
+        launches, st, held, _ = serve_family(
+            torch, model, "mla", (wave1, wave1 + stream(rng, V, heads, 8)),
+            SIM_KERNELS, must_hit=0)
+    finally:
+        restore()
     assert model.moe_impl == "dropless", model.moe_impl
     for name in ("paged_attention", "flash_attention", "decode_attention"):
         assert launches[name] == 0, (name, launches)
+    n_mla = sum(b.kind == "mla" for b in model.layers)
+    assert launches["paged_latent"] == rep["held"] > 0, (launches, rep)
+    assert launches["paged_latent"] == n_mla * st["dispatches"]["decode"], (
+        launches, st["dispatches"])
     assert st["kv"]["pages_shared"] > 0, st["kv"]
-    print(f"mla: K5 launches {launches['paged_attention']} (MLA gathers "
-          f"its latent, as in the reference); latent pages shared: "
+    print(f"mla: paged_latent launches {launches['paged_latent']} ({n_mla} "
+          f"a decode step), each held against the plain version in fp32 "
+          f"(max err {rep['max_abs_err_below_4']:.3g} below 4, "
+          f"{rep['bf16_steps_from_4']:.3g} bf16 step from 4 up, max |out| "
+          f"{rep['max_abs_out']:.3g}); K5 launches "
+          f"{launches['paged_attention']}; latent pages shared: "
           f"{st['kv']['pages_shared']} ({st['kv']['tokens_shared']} "
           f"tokens)", flush=True)
+    eng = serving_engine(torch, model)
+    profile_wave(torch, eng, [(p, 0, 0) for p in stream(rng, V, heads, 8)],
+                 label="mla: profile wave")
+    del eng
     del model
     torch.cuda.empty_cache()
     print(f"mla: phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2639,8 +2707,8 @@ def phase_family_e2e(torch):
     dense prefix and one MoE layer) and mamba2-2.7b (slotted) at full
     width cut to 2 layers, and jamba-v0.1-52b (slotted) cut to one 8-layer
     pattern, fp32 (TF32 off), random weights from seed 0: the kernel path
-    (the model's attention_impl "auto": K8, K7; attn_impl "paged": K5;
-    lookup_impl "auto": K1) against the plain path ("ref", "gather",
+    (the model's attention_impl "auto": K8, K7; attn_impl "paged": K5 and
+    MLA's absorbed decode; lookup_impl "auto": K1) against the plain path ("ref", "gather",
     "ref") over two waves (8 prompts, then those 8 and 8 new; the
     recurrent models' of two lengths, 4 of each).  Each kernel that the
     model's layers reach must launch; tokens, sources and tier counts
@@ -2693,7 +2761,9 @@ def phase_family_e2e(torch):
                     need = ("similarity_topk_batched",) + (
                         ("flash_attention", "paged_attention"
                          if mode == "paged" else "decode_attention")
-                        if "attn" in kinds else ())
+                        if "attn" in kinds else ()) + (
+                        ("paged_latent",)
+                        if "mla" in kinds and mode == "paged" else ())
                     assert all(n[k] > 0 for k in need), (name, mode, n)
                 out[impl] = ({r.req_id: (r.tokens.tolist(), r.source)
                               for r in eng.results},

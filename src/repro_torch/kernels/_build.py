@@ -44,6 +44,7 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,
     "decode_attention_lse": 0,
     "flash_attention": 0,
+    "paged_latent": 0,
 }
 
 # source stem -> loaded library
@@ -95,7 +96,8 @@ def _finish_build(stem: str, job) -> None:
 
 def build_all(stems: Iterable[str] = ("similarity", "paged_attention",
                                      "ivf_pq", "decode_attention",
-                                     "flash_attention")) -> None:
+                                     "flash_attention", "paged_latent")
+              ) -> None:
     """Compile every kernel source at once (one ``nvcc`` per source, all
     started together) and load the libraries."""
     jobs = {s: _start_build(s) for s in stems}

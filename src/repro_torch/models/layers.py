@@ -29,6 +29,7 @@ matrix product per expert elsewhere).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -362,9 +363,16 @@ def yarn_frequencies(cfg, device) -> torch.Tensor:
     published modelling code builds them: theta^(-2i/dr) extrapolated
     below the correction dim of ``YARN_BETA_FAST`` rotations, the same /
     ``yarn_factor`` interpolated above that of ``YARN_BETA_SLOW``, a
-    linear ramp between (for DeepSeek-V2-Lite: dims 10 and 23 of 64)."""
-    d, base = cfg.mla.qk_rope_head_dim, cfg.rope_theta
+    linear ramp between (for DeepSeek-V2-Lite: dims 10 and 23 of 64).
+    Built once per (widths, device) and shared: every MLA layer's rope, at
+    every launch, reads the same tensor (callers never write it)."""
+    return _yarn_frequencies(cfg.mla.qk_rope_head_dim, cfg.rope_theta,
+                             cfg.yarn_factor, torch.device(device))
 
+
+@functools.lru_cache(maxsize=None)
+def _yarn_frequencies(d: int, base: float, factor: float,
+                      device: torch.device) -> torch.Tensor:
     def dim_of(rotations):
         return (d * math.log(YARN_ORIGINAL_MAX_POSITION
                              / (rotations * 2 * math.pi))
@@ -373,7 +381,7 @@ def yarn_frequencies(cfg, device) -> torch.Tensor:
     low = max(math.floor(dim_of(YARN_BETA_FAST)), 0)
     high = min(math.ceil(dim_of(YARN_BETA_SLOW)), d - 1)
     extra = rope_frequencies(d, base, device)
-    inter = extra / cfg.yarn_factor
+    inter = extra / factor
     ramp = ((torch.arange(d // 2, dtype=torch.float32, device=device) - low)
             / (high - low if high > low else 0.001)).clamp(0, 1)
     return inter * ramp + extra * (1 - ramp)

@@ -59,8 +59,12 @@ attention of full sequences (``forward``, ``forward_hidden``,
 (the flash-decode kernel K7), or their plain versions; ``auto`` launches
 the kernels on CUDA tensors.  The reference reserves the switch
 (``attention_impl``) and runs XLA attention whatever its value.  MLA and
-SSM layers are plain PyTorch: the reference computes them with einsums,
-outside any Pallas kernel.
+SSM layers are plain PyTorch, as the reference computes them with einsums,
+outside any Pallas kernel, but for one port-only route: a paged decode step
+that reads its pages in place (``attn_impl`` not ``gather``) runs MLA in
+the absorbed form over each row's visible latent pages
+(``_mla_decode_paged``, the kernel ``kernels/paged_latent``) instead of
+expanding the gathered latent into per-head K and V.
 
 The KV cache is a flat dict of leaves keyed like the reference, one per
 (segment, position), stacked over the segment's repeats: ``{base}/k``,
@@ -105,6 +109,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_gather_view)
+from repro_torch.kernels.paged_latent import paged_latent
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.parallel.collectives import (copy_to, gather_along,
@@ -513,6 +518,10 @@ class DecoderLM(nn.Module):
         # tally of shapes (no sync), which the serving engine reads and
         # clears after each launch
         self.mla_expanded = 0
+        # (query row, visible latent key) pairs the absorbed paged decode
+        # attends (``_mla_decode_paged``), summed over MLA layers: a device
+        # scalar (no sync), read by the engine after its launch syncs
+        self.mla_absorbed = 0
 
     # ------------------------------------------------------------------
     def leaves(self):
@@ -1003,7 +1012,9 @@ class DecoderLM(nn.Module):
         """MLA over the latent cache: write the chunk's (c_kv, k_rope) in
         place (at ``targets``, or at ``slot`` per row for a slotted decode
         step), then attend over the whole (gathered, when paged) latent
-        with the causal mask.  MLA always gathers, as in the reference."""
+        with the causal mask, expanded to per-head K and V, as in the
+        reference: chunks, slotted decodes, and the paged decode under
+        ``attn_impl="gather"`` (``_mla_decode_paged`` takes the others)."""
         cfg = self.cfg
         new = L.mla_latent(cfg, blk, h, positions)
         for leaf, val in zip(leaves, new):
@@ -1023,6 +1034,41 @@ class DecoderLM(nn.Module):
         mask = L.attention_mask(positions, kpos, causal=True)
         return L.mla_attention(cfg, blk, h, ckv, krope, positions, mask=mask)
 
+    def _absorbed_keys(self, cache, block_table, lengths):
+        """The keys each row of a paged decode step sees, ``lengths + 1``
+        (int32), and the step's (row, key) pairs added to ``mla_absorbed``
+        for every MLA layer: rows whose table maps a first page, each up
+        to the table's width."""
+        P, page = next(v for k, v in cache.items()
+                       if k.endswith("/c_kv")).shape[1:3]
+        n_vis = (lengths + 1).to(torch.int32)
+        seen = torch.where(block_table[:, 0] < P,
+                           n_vis.clamp(max=block_table.shape[1] * page), 0)
+        n_mla = sum(b.kind == "mla" for b in self.layers)
+        self.mla_absorbed = self.mla_absorbed + seen.sum() * n_mla
+        return n_vis
+
+    def _mla_decode_paged(self, blk, h, positions, leaves, targets,
+                          block_table, n_vis, attn_impl):
+        """MLA of a paged decode step in the absorbed form (DeepSeek-V2
+        section 2.1.2): write the step's (c_kv, k_rope) at ``targets``,
+        fold w_uk into the query (q_lat (B, H, r), summed in fp32, stored
+        in the model's dtype) and w_uv into the output, and attend every
+        head to each row's visible latent keys in place
+        (``kernels/paged_latent``, ``attn_impl`` auto | cuda | ref).
+        Nothing is expanded to per-head K and V."""
+        cfg = self.cfg
+        dn = cfg.mla.qk_nope_head_dim
+        for leaf, val in zip(leaves, L.mla_latent(cfg, blk, h, positions)):
+            self._scatter(leaf, val, targets)
+        q = torch.einsum("bsd,dhe->bshe", h, blk.wq)
+        q_rope = L.mla_rope(cfg, q[..., dn:], positions)[:, 0]
+        q_lat = torch.einsum("bhe,rhe->bhr", q[:, 0, :, :dn], blk.w_uk)
+        o_lat = paged_latent(q_lat, q_rope, *leaves, block_table, n_vis,
+                             L.mla_scale(cfg), impl=attn_impl)
+        attn = torch.einsum("bhr,rhe->bhe", o_lat, blk.w_uv)
+        return torch.einsum("bhe,hed->bd", attn, blk.wo)[:, None]
+
     def _cached_layers(self, x, positions, lengths, cache, valid,
                        block_table, attn_impl, decode=False, pack=None):
         """Every layer of a prefill chunk / paged decode step: project,
@@ -1040,6 +1086,11 @@ class DecoderLM(nn.Module):
             targets = (None, pack.pages, pack.offsets)
             qpos = lengths.long()[:, None] + torch.arange(pack.width,
                                                           device=x.device)
+        # a paged decode that reads its pages in place takes MLA's absorbed
+        # route: each row sees its keys 0 .. lengths (the step's included)
+        n_vis = (self._absorbed_keys(cache, block_table, lengths)
+                 if decode and block_table is not None
+                 and attn_impl != "gather" and cfg.mla is not None else None)
         for i, blk in enumerate(self.layers):
             # reference: transformer.py:768 (prefill_chunk's body; its paged
             # decode_step shares this loop)
@@ -1048,6 +1099,10 @@ class DecoderLM(nn.Module):
             if blk.kind == "ssm":
                 h = L.rms_norm(x, blk.ssm_norm, cfg.norm_eps)
                 y = self._ssm_cached(blk, h, leaves, decode)
+            elif blk.kind == "mla" and n_vis is not None:
+                h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+                y = self._mla_decode_paged(blk, h, positions, leaves, targets,
+                                           block_table, n_vis, attn_impl)
             elif blk.kind == "mla":
                 h = L.rms_norm(x, blk.attn_norm, cfg.norm_eps)
                 y = self._mla_cached(blk, h, positions, leaves, targets,

@@ -39,8 +39,10 @@ observability: under a tracer each model launch's span holds ``pack``,
 ``forward`` and ``sample`` spans, and every launch, traced or not, feeds
 ``engine/fill/{descriptor,prefill,decode}/{tokens,slots}``: the real
 tokens and the padded slots of the shape the model ran; an MLA model's
-prefill, chunk and decode launches feed ``engine/mla/{expanded,written}``:
-the latent rows expanded to per-head K and V, and those written.
+prefill, chunk and decode launches feed
+``engine/mla/{expanded,absorbed,written}``: the latent rows expanded to
+per-head K and V, the (row, latent key) pairs the absorbed paged decode
+attends, and the latent rows written.
 
 The port serves both cache layouts behind any CoIC org: a cooperative
 cluster of one or more nodes, or a cross-cluster federation, with an
@@ -245,14 +247,18 @@ class ServingEngine:
                           self.metrics.histogram(f"engine/fill/{k}/slots"))
                       for k in ("descriptor", "prefill", "decode")}
         # per launch of an MLA model over its latent cache: the latent rows
-        # it expands to per-head K and V (the model's own tally,
-        # ``DecoderLM.mla_expanded``), and the latent rows it writes (real
-        # tokens x MLA layers); a model without MLA registers neither
+        # it expands to per-head K and V and the (row, key) pairs its
+        # absorbed paged decode attends (the model's own tallies,
+        # ``DecoderLM.mla_expanded`` and ``mla_absorbed``), and the latent
+        # rows it writes (real tokens x MLA layers); a model without MLA
+        # registers none
         self._mla_layers = sum(b.kind == "mla" for b in model.layers)
         self._mla = ((self.metrics.histogram("engine/mla/expanded"),
+                      self.metrics.histogram("engine/mla/absorbed"),
                       self.metrics.histogram("engine/mla/written"))
                      if self._mla_layers else None)
         model.mla_expanded = 0       # launches before this engine are not its
+        model.mla_absorbed = 0
         self._last_step_ladder = self.metrics.gauge("engine/last_step_ladder")
         self._max_step_ladder = self.metrics.gauge("engine/max_step_ladder")
 
@@ -494,13 +500,16 @@ class ServingEngine:
         slot_h.observe(slots)
 
     def _observe_mla(self, written: int) -> None:
-        """An MLA model's launch, just run: the latent rows the model
-        counted as expanded (its tally, cleared here), ``written`` real
+        """An MLA model's launch, just run (its result already on the
+        host): the latent rows the model counted as expanded and the pairs
+        it attended absorbed (its tallies, cleared here), ``written`` real
         tokens written."""
         if self._mla is not None:
-            expanded_h, written_h = self._mla
+            expanded_h, absorbed_h, written_h = self._mla
             expanded_h.observe(self.model.mla_expanded)
+            absorbed_h.observe(int(self.model.mla_absorbed))
             self.model.mla_expanded = 0
+            self.model.mla_absorbed = 0
             written_h.observe(written * self._mla_layers)
 
     # ------------------------------------------------------------------

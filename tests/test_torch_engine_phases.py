@@ -5,8 +5,9 @@ that is not a prompt's last reads no token), and every launch feeds
 ``engine/fill/{descriptor,prefill,decode}/{tokens,slots}`` with the real
 tokens and the slots of the padded shape it ran, traced or not; an MLA
 model's prefill, chunk and decode launches feed
-``engine/mla/{expanded,written}`` (latent rows expanded to per-head K and
-V, latent rows written).
+``engine/mla/{expanded,absorbed,written}`` (latent rows expanded to
+per-head K and V, (row, key) pairs the absorbed paged decode attends,
+latent rows written).
 
 A tiny fp32 ``coic-paper`` behind a prefix descriptor serves three
 prompts of 5, 20 and 37 tokens at once (4 rows, chunks of 16, 3 new
@@ -196,15 +197,19 @@ def test_traced_and_untraced_serve_the_same(model, layout):
 
 # An MLA model (reduced deepseek-v2-lite, 2 MLA layers) on the same
 # prompts: each launch observes the latent rows it expands (rows x the keys
-# each row's view holds x 2 layers) and those it writes (real tokens x 2).
-# Paged: MLA keeps the padded chunk, (4, 16), (2, 16), (1, 16), each row
-# viewing its whole table of max_len 64 keys; 4 decodes of 4 rows x 64.
-# Slotted: the (1, 8) prefill views its 8 padded keys, the five (1, 16)
-# chunks their B=1 cache of 64; 4 decodes of 4 rows x 64.
+# each row's view holds x 2 layers), the (row, key) pairs its absorbed
+# paged decode attends (x 2 layers) and the rows it writes (real tokens x
+# 2).  Paged: MLA keeps the padded chunk, (4, 16), (2, 16), (1, 16), each
+# row viewing its whole table of max_len 64 keys; the 4 decodes expand
+# nothing and attend the live rows' keys: 6 and 7 (the 5-token row), 21
+# and 22, 38 and 39.  Slotted: the (1, 8) prefill views its 8 padded keys,
+# the five (1, 16) chunks their B=1 cache of 64; 4 decodes of 4 rows x 64.
 MLA_EXPECT = {
-    "paged": {"expanded": (7, (4 + 2 + 1) * 64 * 2 + 4 * 4 * 64 * 2),
+    "paged": {"expanded": (7, (4 + 2 + 1) * 64 * 2),
+              "absorbed": (7, (6 + 7 + 21 + 22 + 38 + 39) * 2),
               "written": (7, (62 + 6) * 2)},
     "slotted": {"expanded": (10, 8 * 2 + 5 * 64 * 2 + 4 * 4 * 64 * 2),
+                "absorbed": (10, 0),
                 "written": (10, (62 + 6) * 2)},
 }
 
@@ -223,14 +228,14 @@ def test_mla_counters_match_hand_views(model, mla_model, layout):
     eng = _engine(mla_model, layout)
     res = _serve(eng, second_wave=False)
     assert [s for s, _ in res.values()] == ["cloud"] * 3
-    got = {k: (h.count, h.sum) for k in ("expanded", "written")
+    got = {k: (h.count, h.sum) for k in ("expanded", "absorbed", "written")
            for h in (eng.metrics.get(f"engine/mla/{k}"),)}
     assert got == MLA_EXPECT[layout]
     # a model without MLA registers neither
     plain = _engine(model, layout)
     _serve(plain, second_wave=False)
-    assert not {"engine/mla/expanded", "engine/mla/written"} & set(
-        plain.metrics.snapshot())
+    assert not {"engine/mla/expanded", "engine/mla/absorbed",
+                "engine/mla/written"} & set(plain.metrics.snapshot())
 
 
 def test_mla_tally_counts_the_gathered_width(mla_model):
